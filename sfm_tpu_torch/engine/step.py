@@ -1,0 +1,202 @@
+"""The per-frame step and the host-facing ``SfMEngine``.
+
+``step_frame`` dispatches on the 3-state machine NOT_INITIALIZED / RUNNING /
+LOST with a host branch on ``status`` (one small device-to-host read per
+frame).  ``SfMEngine`` mirrors the JAX package's driver: ``add_frame``
+(inline mapping), ``add_frames`` (a chunk of frames with deferred mapping:
+the mapping pass runs once after the chunk), ``get_reconstruction`` and
+``get_trajectory``."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import SfMConfig
+from ..geometry.camera import optimal_new_camera_matrix
+from ..mapstore import add_descriptors, landmark_colors
+from .bootstrap import bootstrap_step
+from .mapping import mapping_pass
+from .state import (NOT_INITIALIZED, RUNNING, CameraParams, SfMState,
+                    init_state, make_frame, scalar)
+from .tracking import tracking_step
+
+_UNPORTED = (
+    ("track_with_flow", lambda c: c.track_with_flow, "flow"),
+    ("global_ba_every", lambda c: c.global_ba_every > 0,
+     "global BA and loop closure"),
+    ("loop_detect_every", lambda c: c.loop_detect_every > 0,
+     "global BA and loop closure"),
+    ("ba_solver", lambda c: c.ba_solver != "dense",
+     "ba/large.py with K2, K3, K4"),
+)
+
+
+def check_supported(cfg: SfMConfig) -> None:
+    """Raise NotImplementedError for configuration options whose code is
+    not ported yet (ROADMAP.md names each item)."""
+    for name, off, item in _UNPORTED:
+        if off(cfg):
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r} is not ported yet "
+                f"(ROADMAP.md, still to port: {item})")
+
+
+def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
+               image: torch.Tensor, generator: Optional[torch.Generator],
+               defer_mapping: bool = False) -> Tuple[SfMState, dict]:
+    """One frame: (state, grey image [H, W]) -> (state, metrics)."""
+    frame = make_frame(cfg, cam, image, state.frame_count)
+    status = int(state.status)
+    if status == NOT_INITIALIZED:
+        state, m = bootstrap_step(cfg, cam, state, frame, generator)
+    elif status == RUNNING:
+        mapping_fn = None if defer_mapping else (
+            lambda st, slot: mapping_pass(cfg, cam, st, slot))
+        state, m = tracking_step(cfg, cam, state, frame, mapping_fn,
+                                 generator)
+    else:
+        raise NotImplementedError(
+            "the engine is LOST and relocalization is not ported yet "
+            "(ROADMAP.md, still to port: reloc with p3p)")
+    return state.replace(frame_count=state.frame_count + 1), m
+
+
+def run_pending_mapping(cfg: SfMConfig, cam: CameraParams,
+                        state: SfMState) -> SfMState:
+    """The deferred mapping pass: runs on ``pending_map_slot`` (a no-op
+    when none is pending) and clears it."""
+    slot = int(state.pending_map_slot)
+    state = state.replace(pending_map_slot=scalar(-1, state.status.device))
+    if slot < 0:
+        return state
+    # the descriptor votes and colours of the new keyframe's links (the
+    # inline path stacks them at insertion)
+    fr = state.kfs.frames
+    ids = torch.where(fr.kp_valid[slot], fr.landmark[slot], -1)
+    state = state.replace(lms=add_descriptors(
+        state.lms, ids, fr.desc[slot], colors=fr.color[slot]))
+    st = mapping_pass(cfg, cam, state, slot)
+    # the BA-optimised keyframe pose goes back into the reference frame
+    # when it is that keyframe
+    fr = st.kfs.frames
+    match = st.kfs.valid[slot] & (fr.frame_no[slot] == st.prev.frame_no)
+    prev = st.prev.replace(
+        rvec=torch.where(match, fr.rvec[slot], st.prev.rvec),
+        tvec=torch.where(match, fr.tvec[slot], st.prev.tvec))
+    kf_links = (fr.kp_valid[slot] & (fr.landmark[slot] >= 0)).sum()
+    return st.replace(prev=prev, last_kf_tracked=kf_links.to(torch.int32))
+
+
+def _fetch(ms: list) -> list:
+    """Per-frame metric dicts of tensors -> dicts of numpy values, one
+    device-to-host copy per field for the whole list."""
+    if not ms:
+        return []
+    stacked = {k: torch.stack([m[k] for m in ms]).cpu().numpy()
+               for k in ms[0]}
+    return [{k: v[i] for k, v in stacked.items()} for i in range(len(ms))]
+
+
+class SfMEngine:
+    """Host-side engine.  ``device`` picks where every tensor lives; on a
+    CUDA device the matcher and the patch sampler run as CUDA kernels."""
+
+    def __init__(self, K, image_size, dist=None,
+                 config: Optional[SfMConfig] = None, device="cpu",
+                 seed: int = 0):
+        # full float32 matmuls and convolutions (TF32 keeps ~3 digits and
+        # stalls bootstrap the way bf16 rounding did on the TPU)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = config or SfMConfig()
+        if tuple(image_size) != cfg.image_size:
+            cfg = SfMConfig(**{**cfg.__dict__, "image_height": image_size[0],
+                               "image_width": image_size[1]})
+        check_supported(cfg)
+        self.config = cfg
+        self.device = torch.device(device)
+        K = np.asarray(K, np.float32)
+        d = np.zeros(5, np.float32)
+        if dist is not None:
+            d[:len(dist)] = np.asarray(dist, np.float32)
+        Kopt = optimal_new_camera_matrix(K, d, cfg.image_size) \
+            if np.any(d != 0) else K
+        as_t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        self.cam = CameraParams(K=as_t(K), d=as_t(d), Kopt=as_t(Kopt))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.state = init_state(cfg, self.device)
+        self.metrics_log = []
+
+    def _images(self, images, batched: bool) -> torch.Tensor:
+        if not torch.is_tensor(images):
+            images = np.asarray(images, np.float32)
+        imgs = torch.as_tensor(images, dtype=torch.float32,
+                               device=self.device)
+        if imgs.dim() == (4 if batched else 3):
+            if self.config.guidance_enabled:
+                raise NotImplementedError(
+                    "RGB input with guidance_enabled: scan guidance is not "
+                    "ported yet (ROADMAP.md, still to port: guidance)")
+            imgs = (0.299 * imgs[..., 0] + 0.587 * imgs[..., 1]
+                    + 0.114 * imgs[..., 2])
+        return imgs
+
+    def add_frame(self, image) -> dict:
+        """Process one frame (mapping runs inline on a keyframe).  image:
+        [H, W] grey, uint8 or float."""
+        self.state, m = step_frame(self.config, self.cam, self.state,
+                                   self._images(image, False), self.generator)
+        out = _fetch([m])[0]
+        self.metrics_log.append(out)
+        return out
+
+    def add_frames(self, images) -> list:
+        """Process a chunk of frames [T, H, W].  Chunks no longer than
+        ``keyframe_time_lag`` defer mapping to one pass after the chunk (at
+        most one keyframe can be pending); longer chunks map inline."""
+        imgs = self._images(images, True)
+        deferred = imgs.shape[0] <= self.config.keyframe_time_lag
+        ms = []
+        for img in imgs:
+            self.state, m = step_frame(self.config, self.cam, self.state, img,
+                                       self.generator, defer_mapping=deferred)
+            ms.append(m)
+        if deferred:
+            self.state = run_pending_mapping(self.config, self.cam,
+                                             self.state)
+        out = _fetch(ms)
+        self.metrics_log.extend(out)
+        return out
+
+    def get_reconstruction(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Live landmark positions [M, 3] and mean observed colours
+        [M, 3] uint8."""
+        lms = self.state.lms
+        valid = lms.valid.cpu().numpy()
+        pts = lms.xyz.cpu().numpy()[valid]
+        cols = np.clip(landmark_colors(lms).cpu().numpy()[valid], 0, 255)
+        return pts, cols.astype(np.uint8)
+
+    def get_trajectory(self) -> np.ndarray:
+        """Keyframe poses [n, 6] (rvec, tvec) sorted by frame number."""
+        kfs = self.state.kfs
+        valid = kfs.valid.cpu().numpy()
+        fn = kfs.frames.frame_no.cpu().numpy()[valid]
+        rv = kfs.frames.rvec.cpu().numpy()[valid]
+        tv = kfs.frames.tvec.cpu().numpy()[valid]
+        order = np.argsort(fn)
+        return np.concatenate([rv[order], tv[order]], axis=1)
+
+    def keyframe_numbers(self) -> np.ndarray:
+        """Frame numbers of the valid keyframes, sorted."""
+        kfs = self.state.kfs
+        return np.sort(kfs.frames.frame_no.cpu().numpy()[
+            kfs.valid.cpu().numpy()])
+
+    @property
+    def status(self) -> int:
+        return int(self.state.status)

@@ -1,0 +1,112 @@
+"""Synthetic textured-sprite scan generator (numpy only).
+
+A copy of ``sfm_tpu.synthetic``'s ``SpriteScene``, ``strafe_trajectory``
+and ``umeyama_ate``: the same seed renders the same frames in both
+packages, and this copy runs where JAX is not installed."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .np_geometry import rodrigues_np, log_rotation
+
+
+class SpriteScene:
+    def __init__(self, rng, n_sprites=140, spread=2.0, depth=(4.0, 7.0),
+                 tex_res=6, sprite_size=0.4):
+        self.centers = np.stack([
+            rng.uniform(-spread, spread, n_sprites),
+            rng.uniform(-spread * 0.75, spread * 0.75, n_sprites),
+            rng.uniform(depth[0], depth[1], n_sprites)], axis=1)
+        self.textures = rng.uniform(40, 250, (n_sprites, tex_res, tex_res))
+        self.tints = rng.uniform(0.35, 1.0, (n_sprites, 3))
+        self.size = sprite_size
+        self.tex_res = tex_res
+
+    def render(self, K, rvec, tvec, h, w, dist=None, rgb=False):
+        """Render one frame: world-frontoparallel textured squares painted
+        far-to-near.  ``dist`` applies the radial-tangential model
+        (k1,k2,p1,p2,k3) to sprite centers; ``rgb=True`` returns
+        [h, w, 3] with per-sprite tints."""
+        R = rodrigues_np(np.asarray(rvec, np.float64))
+        t = np.asarray(tvec, np.float64)
+        cam = self.centers @ R.T + t
+        img = np.full((h, w, 3) if rgb else (h, w), 25.0, np.float32)
+        order = np.argsort(-cam[:, 2])  # far first
+        fx, fy = K[0, 0], K[1, 1]
+        for i in order:
+            z = cam[i, 2]
+            if z < 0.5:
+                continue
+            xn, yn = cam[i, 0] / z, cam[i, 1] / z
+            if dist is not None:
+                k1, k2, p1, p2, k3 = (list(dist) + [0.0] * 5)[:5]
+                r2 = xn * xn + yn * yn
+                radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+                xd = xn * radial + 2 * p1 * xn * yn + p2 * (r2 + 2 * xn * xn)
+                yd = yn * radial + p1 * (r2 + 2 * yn * yn) + 2 * p2 * xn * yn
+                xn, yn = xd, yd
+            u = fx * xn + K[0, 2]
+            v = fy * yn + K[1, 2]
+            half_u = fx * self.size / z / 2
+            half_v = fy * self.size / z / 2
+            u0, u1 = int(u - half_u), int(u + half_u)
+            v0, v1 = int(v - half_v), int(v + half_v)
+            if u1 <= 0 or v1 <= 0 or u0 >= w or v0 >= h or u1 <= u0 or v1 <= v0:
+                continue
+            cu0, cv0 = max(u0, 0), max(v0, 0)
+            cu1, cv1 = min(u1, w), min(v1, h)
+            tex = self.textures[i]
+            ty = ((np.arange(cv0, cv1) - v0) * self.tex_res // max(v1 - v0, 1))
+            tx = ((np.arange(cu0, cu1) - u0) * self.tex_res // max(u1 - u0, 1))
+            ty = np.clip(ty, 0, self.tex_res - 1)
+            tx = np.clip(tx, 0, self.tex_res - 1)
+            patch = tex[np.ix_(ty, tx)]
+            if rgb:
+                img[cv0:cv1, cu0:cu1] = patch[:, :, None] * self.tints[i]
+            else:
+                img[cv0:cv1, cu0:cu1] = patch
+        return img
+
+
+def strafe_trajectory(n_frames, step=0.05, yaw_rate=0.004):
+    """Mostly-lateral camera motion with mild yaw.  Returns (rvecs, tvecs)
+    world-to-camera."""
+    rvecs, tvecs = [], []
+    for k in range(n_frames):
+        c = np.array([step * k, 0.25 * step * np.sin(0.3 * k), 0.0])
+        yaw = -yaw_rate * k
+        R = np.array([[np.cos(yaw), 0, -np.sin(yaw)],
+                      [0, 1, 0],
+                      [np.sin(yaw), 0, np.cos(yaw)]])
+        tvec = -R @ c
+        rvecs.append(log_rotation(R))
+        tvecs.append(tvec.astype(np.float32))
+    return np.asarray(rvecs, np.float32), np.asarray(tvecs, np.float32)
+
+
+def umeyama_ate(est_t, gt_t):
+    """Similarity-aligned (Umeyama) absolute trajectory error."""
+    mu_e = est_t.mean(0); mu_g = gt_t.mean(0)
+    e = est_t - mu_e; g = gt_t - mu_g
+    cov = g.T @ e / len(e)
+    U, D, Vt = np.linalg.svd(cov)
+    S = np.eye(3)
+    if np.linalg.det(U @ Vt) < 0:
+        S[2, 2] = -1
+    Rot = U @ S @ Vt
+    var_e = (e ** 2).sum() / len(e)
+    scale = np.trace(np.diag(D) @ S) / max(var_e, 1e-12)
+    resid = g - scale * e @ Rot.T
+    return float(np.sqrt((resid ** 2).sum(1).mean()))
+
+
+def keyframe_ate(traj, frame_nos, rvecs, tvecs):
+    """Sim(3)-aligned keyframe ATE and trajectory extent.  ``traj`` is
+    [n, 6] (rvec, tvec) sorted by ``frame_nos``; ground truth is indexed by
+    frame number.  Returns (ate, extent) in world units."""
+    est_c = np.stack([-rodrigues_np(p[:3]).T @ p[3:] for p in traj])
+    gt_c = np.stack([-rodrigues_np(rvecs[f]).T @ tvecs[f]
+                     for f in frame_nos])
+    extent = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    return umeyama_ate(est_c, gt_c), extent

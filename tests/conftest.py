@@ -44,6 +44,8 @@ _recorded = {}
 def pytest_configure(config):
     config.addinivalue_line("markers", "fast: unit-level test (< ~5 s)")
     config.addinivalue_line("markers", "slow: heavy integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,88 @@
+"""Helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages; data
+crosses between them as numpy arrays.  Torch is held to one thread: the
+suite runs several xdist workers on a few cores."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+TEST_K = np.array([[250., 0, 160], [0, 250., 120], [0, 0, 1]], np.float32)
+
+
+def to_t(a, dtype=None) -> torch.Tensor:
+    """numpy (or a JAX array) -> CPU tensor; uint32 words become int32
+    with the same bits."""
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    t = torch.from_numpy(a)
+    return t if dtype is None else t.to(dtype)
+
+
+def to_np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def rand_desc(rng, n: int, words: int = 16) -> np.ndarray:
+    """[n, words] uint32 random descriptors."""
+    return rng.integers(0, 2 ** 32, (n, words), dtype=np.uint64).astype(
+        np.uint32)
+
+
+def noisy_copies(rng, desc: np.ndarray, rows: np.ndarray,
+                 flip_p: float = 0.05) -> np.ndarray:
+    """desc[rows] with each bit flipped with probability flip_p."""
+    bits = np.unpackbits(desc[rows].view(np.uint8), axis=-1,
+                         bitorder="little")
+    bits ^= (rng.uniform(0, 1, bits.shape) < flip_p).astype(np.uint8)
+    return np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
+
+
+def match_case(rng, ns: int, nt: int, extent: float = 200.0,
+               copy_p: float = 0.4):
+    """A matcher case: targets, sources of which a share are noisy copies
+    of targets placed near them.  Returns numpy (d0, xy0, v0, d1, xy1, v1)."""
+    d1 = rand_desc(rng, nt)
+    xy1 = rng.uniform(0, extent, (nt, 2)).astype(np.float32)
+    d0 = rand_desc(rng, ns)
+    xy0 = rng.uniform(0, extent, (ns, 2)).astype(np.float32)
+    copy = rng.uniform(0, 1, ns) < copy_p
+    pick = rng.integers(0, nt, ns)
+    d0[copy] = noisy_copies(rng, d1, pick[copy])
+    xy0[copy] = xy1[pick[copy]] + rng.normal(0, 6, (copy.sum(), 2))
+    v0 = rng.uniform(0, 1, ns) < 0.9
+    v1 = rng.uniform(0, 1, nt) < 0.9
+    return d0, xy0.astype(np.float32), v0, d1, xy1, v1
+
+
+def random_scene(rng, n_points=200, depth=(4.0, 8.0), spread=2.0):
+    """Points in front of camera 0 (at the origin) and a second camera
+    displaced and rotated; exact pixel projections under TEST_K."""
+    from sfm_tpu_torch.np_geometry import project_np, rodrigues_np
+    X = np.stack([rng.uniform(-spread, spread, n_points),
+                  rng.uniform(-spread, spread, n_points),
+                  rng.uniform(depth[0], depth[1], n_points)], 1)
+    rvec1 = rng.uniform(-0.1, 0.1, 3)
+    t1 = np.array([rng.uniform(0.3, 0.8), rng.uniform(-0.1, 0.1),
+                   rng.uniform(-0.1, 0.1)])
+    R1 = rodrigues_np(rvec1)
+    uv0 = project_np(TEST_K, np.eye(3), np.zeros(3), X)
+    uv1 = project_np(TEST_K, R1, t1, X)
+    f = np.float32
+    return dict(X=X.astype(f), rvec1=rvec1.astype(f), t1=t1.astype(f),
+                uv0=uv0.astype(f), uv1=uv1.astype(f))
+
+
+def texture(rng, h: int, w: int) -> np.ndarray:
+    """A blocky random texture with corners at several scales."""
+    img = np.full((h, w), 30.0, np.float32)
+    for _ in range(60):
+        s = int(rng.integers(6, 30))
+        y, x = int(rng.integers(0, h - s)), int(rng.integers(0, w - s))
+        img[y:y + s, x:x + s] = rng.uniform(40, 250)
+    return img
