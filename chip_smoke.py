@@ -4,15 +4,25 @@
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
-2. builds the CUDA kernels from sfm_tpu_torch/csrc (nvcc, sm_90a);
+2. builds the CUDA kernels from sfm_tpu_torch/csrc (one nvcc per source,
+   all in parallel, sm_90a);
 3. holds each kernel against its plain PyTorch version at the main path's
-   shapes (K1 exact, K5 within 1e-3) and times both with CUDA events;
+   shapes and times both with CUDA events: K1 exact, K5 within 1e-3, and
+   the BA kernels K2 (linearizer) and K3 (Schur apply: full, gather and
+   scatter modes) within 1e-4 of the largest entry, at the flagship's
+   mapping-BA shape (dead rows included) and at benchmarks/bench_ba.py's
+   1000-camera problem;
 4. drives the main path: SfMEngine.add_frames on the synthetic 80-frame
-   480x640 strafe scan (the JAX package's bench.py workload) with the
-   flagship configuration and the dense BA solver, on the card, and checks
-   tracking, keyframes, trajectory accuracy (sim(3) keyframe ATE against
-   the ground-truth poses) and that both kernels were launched by the run;
-5. prints a JSON line with the kernels' numbers, then the card line, then
+   480x640 strafe scan (the JAX package's bench.py workload) under the
+   FLAGSHIP configuration (the large implicit-Schur BA solver), on the card,
+   and checks tracking, keyframes, trajectory accuracy (sim(3) keyframe ATE
+   against the ground-truth poses), finite landmarks, and that K1, K5, K2,
+   K3 and K3-gather were launched by the run;
+5. the same scan under SLICE (the dense BA solver), with its own checks;
+6. the large solver's second entry point, run_large_ba, at bench_ba.py's
+   operating point (1000 cameras, 100k landmarks, 8 LM x 25 CG
+   iterations): ms per LM iteration, and the cost must decrease;
+7. prints a JSON line with the kernels' numbers, then the card line, then
    {"ok": true, "device": {...}} as the last line.
 Any failed check raises, and the script exits non-zero."""
 
@@ -28,7 +38,25 @@ KERNEL_ROWS = (
      "sfm_tpu/features/match_pallas.py:33"),
     ("patch_sampler", "sfm_tpu_torch/csrc/patches.cu",
      "sfm_tpu/features/patches_pallas.py:30"),
+    ("ba_linearize", "sfm_tpu_torch/csrc/linearize.cu",
+     "sfm_tpu/ba/linearize_pallas.py:110"),
+    ("schur_apply", "sfm_tpu_torch/csrc/schur.cu",
+     "sfm_tpu/ba/schur_pallas.py:231"),
+    ("schur_gather", "sfm_tpu_torch/csrc/schur.cu",
+     "sfm_tpu/ba/schur_pallas.py:125"),
+    ("schur_scatter", "sfm_tpu_torch/csrc/schur.cu",
+     "sfm_tpu/ba/schur_pallas.py:150"),
 )
+# the kernels the FLAGSHIP scan must launch (K3-scatter is off its path)
+MAIN_PATH = ("hamming_match", "patch_sampler", "ba_linearize", "schur_apply",
+             "schur_gather")
+# BA kernels against their plain versions: max abs error over the largest
+# entry of the plain output.  The kernels contract multiply-adds (FMA)
+# where the plain torch ops round each step; a residual of a few pixels at
+# coordinates of hundreds keeps ~5 digits in f32, and the Huber weight and
+# g follow it.  Sums run in another order (shared-memory atomics in the
+# kernels, atomics in the plain index_add_).
+BA_REL_TOL = 1e-4
 K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], np.float32)
 N_FRAMES = 80
 
@@ -153,9 +181,184 @@ def check_kernels(torch, dev):
     return rows
 
 
-def run_slice(torch, dev, cfg, K=K, n_frames=N_FRAMES):
-    """The main path: add_frames over the bench.py scan in chunks of
-    keyframe_time_lag frames, then the checks."""
+def ba_problem(torch, dev, n_cams, n_lms, obs_per_lm, seed=0,
+               min_obs=None, noise_px=0.0, outlier_p=0.0, spread=1.0,
+               live=1.0):
+    """benchmarks/bench_ba.py's synthetic problem (cameras along x, each
+    landmark seen by obs_per_lm consecutive cameras), made the same way
+    with numpy.  The options are not in bench_ba: min_obs empties the tail
+    slots of some landmarks; noise_px / outlier_p perturb the pixels;
+    spread scales the lateral extent of the scene and the trajectory (at 1
+    the pixels reach ~2700, where an f32 residual of a few pixels keeps
+    only ~4 digits; 0.2 keeps them within ~800); live < 1 leaves only the
+    first share of the landmark rows observed, as landmark compaction
+    leaves the mapping BA's table."""
+    from sfm_tpu_torch.ba.large import ObsTables, build_lm_tables_device
+    from sfm_tpu_torch.ba.residuals import Observations
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-50, 50, n_lms) * spread,
+                  rng.uniform(-10, 10, n_lms) * spread,
+                  rng.uniform(20, 60, n_lms)], 1).astype(np.float32)
+    cam_t = np.stack([np.linspace(-40, 40, n_cams) * spread,
+                      np.zeros(n_cams), np.zeros(n_cams)],
+                     1).astype(np.float32)
+    base = rng.integers(0, n_cams - obs_per_lm, n_lms)
+    lm_idx = np.repeat(np.arange(n_lms), obs_per_lm)
+    cam_idx = (base[:, None] + np.arange(obs_per_lm)[None, :]).reshape(-1)
+    p = X[lm_idx] + cam_t[cam_idx]
+    uv = (p[:, :2] / p[:, 2:]) * 525.0 + np.array([320.0, 240.0])
+    w = np.ones(len(cam_idx), np.float32)
+    if min_obs is not None:
+        n = rng.integers(min_obs, obs_per_lm + 1, n_lms)
+        slot = np.tile(np.arange(obs_per_lm), n_lms)
+        w[slot >= np.repeat(n, obs_per_lm)] = 0
+    w[lm_idx >= int(live * n_lms)] = 0
+    if noise_px:
+        uv = uv + rng.normal(0, noise_px, uv.shape)
+    uv[rng.uniform(0, 1, len(uv)) < outlier_p] += 30.0
+    rv0 = np.zeros((n_cams, 3), np.float32)
+    rv0[1:] += 0.002
+    X0 = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.asarray(a), dtype=dt, device=dev)
+    obs = Observations(t(cam_idx, torch.int64), t(lm_idx, torch.int64),
+                       t(uv), t(w))
+    lm_cam, lm_uv, lm_w, _ = build_lm_tables_device(obs, n_lms, obs_per_lm)
+    cam_free = torch.ones(n_cams, dtype=torch.bool, device=dev)
+    cam_free[0] = False
+    return dict(K=t(K), rv=t(rv0), tv=t(cam_t), X=t(X0),
+                tables=ObsTables(lm_cam, lm_uv, lm_w), cam_free=cam_free,
+                lm_free=torch.ones(n_lms, dtype=torch.bool, device=dev),
+                n_obs=int((w > 0).sum()))
+
+
+def _rel_err(a, b):
+    """(max abs error, the same over the largest |b|)."""
+    err = float((a.double() - b.double()).abs().max())
+    scale = max(float(b.double().abs().max()), 1e-30)
+    if not np.isfinite(err) or err > BA_REL_TOL * scale:
+        raise AssertionError(f"max abs err {err} > {BA_REL_TOL} x {scale}")
+    return err, err / scale
+
+
+def check_ba_kernels(torch, dev):
+    """K2 and the three K3 modes against their plain versions at the
+    flagship's mapping-BA shape (32 cameras, 2048 landmark rows of which
+    the first 20% are live, as after compaction on the scan's map; kmax 8,
+    Huber 2.0, free masks) and at bench_ba.py's (1000, 100k, 6)."""
+    from sfm_tpu_torch.ba import linearize_pallas as lp
+    from sfm_tpu_torch.ba import schur_pallas as sp
+    from sfm_tpu_torch.geometry.rotations import exp_so3
+
+    # (label, C, L, kmax, Huber delta, landmark mask, problem options)
+    shapes = (("flagship C=32 L=2048 kmax=8", 32, 2048, 8, 2.0, True,
+               dict(min_obs=2, noise_px=1.0, outlier_p=0.05, spread=0.2,
+                    live=0.2)),
+              ("bench_ba C=1000 L=100000 kmax=6", 1000, 100_000, 6, 0.0,
+               False, {}))
+    per = {k: [] for k in ("ba_linearize", "schur_apply", "schur_gather",
+                           "schur_scatter")}
+    for label, C, L, kmax, huber, mask, extra in shapes:
+        pr = ba_problem(torch, dev, C, L, kmax, **extra)
+        tb = pr["tables"]
+        lm_free = pr["lm_free"].float()
+        if mask:   # camera 0 is frozen already; every 7th landmark too
+            lm_free[::7] = 0.0
+        args = (pr["K"], exp_so3(pr["rv"]).contiguous(), pr["tv"], pr["X"],
+                lm_free, pr["cam_free"].float(), tb.lm_cam, tb.lm_uv,
+                tb.lm_w, huber)
+        out = lp.ba_linearize_kernel(*args)
+        ref = lp.ba_linearize_plain(*args)
+        torch.cuda.synchronize()
+        errs = [_rel_err(a, b) for a, b in zip(out, ref)]
+        err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        ms, plain_ms = in_turns(torch, lambda: lp.ba_linearize_plain(*args),
+                                lambda: lp.ba_linearize_kernel(*args))
+        per["ba_linearize"].append(dict(shape=label, ms=ms, plain_ms=plain_ms,
+                                        max_abs_err=err, max_rel_err=rel))
+        log(f"K2 {label} ({pr['n_obs']} obs): max abs err {err:.3e} "
+            f"(rel {rel:.3e}; W V g_lm U g_cam cost "
+            f"{' '.join(f'{e[1]:.1e}' for e in errs)}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+
+        W, V, g_lm = ref[0], ref[1], ref[2]
+        Vinv = lp.damped_vinv(V, 1e-3)
+        x = torch.as_tensor(np.random.default_rng(1).normal(0, 1, (C, 6)),
+                            dtype=torch.float32, device=dev)
+        lm_cam = tb.lm_cam
+        z_ref = sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x)
+        cases = (
+            ("schur_apply",
+             lambda: sp.schur_kernel("full", lm_cam, W, Vinv, g_lm, x),
+             lambda: sp.schur_apply_fused_plain(lm_cam, W, Vinv, g_lm, x,
+                                                C)),
+            ("schur_gather",
+             lambda: (sp.schur_kernel("gather", lm_cam, W, Vinv, g_lm, x),),
+             lambda: (sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x),)),
+            ("schur_scatter",
+             lambda: (sp.schur_kernel("scatter", lm_cam, W, z=z_ref,
+                                      n_cams=C),),
+             lambda: (sp.schur_scatter_plain(lm_cam, W, z_ref, C),)))
+        for name, kern, plain in cases:
+            a, b = kern(), plain()
+            torch.cuda.synchronize()
+            errs = [_rel_err(u, v) for u, v in zip(a, b)]
+            err = max(e[0] for e in errs)
+            rel = max(e[1] for e in errs)
+            ms, plain_ms = in_turns(torch, plain, kern)
+            per[name].append(dict(shape=label, ms=ms, plain_ms=plain_ms,
+                                  max_abs_err=err, max_rel_err=rel))
+            log(f"K3 {name} {label}: max abs err {err:.3e} (rel {rel:.3e}), "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # the kernels line carries the main path's (flagship) shape
+    return {k: dict(v[0], per_shape=v) for k, v in per.items()}
+
+
+def run_bench_ba(torch, dev, iterations=8, cg_iterations=25):
+    """run_large_ba at bench_ba.py's operating point, timed on the second
+    of two runs (host clock around a synchronised run)."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.ba.large import run_large_ba
+    pr = ba_problem(torch, dev, 1000, 100_000, 6)
+
+    def once():
+        return run_large_ba(pr["K"], pr["rv"], pr["tv"], pr["X"],
+                            pr["tables"], cam_free=pr["cam_free"],
+                            lm_free=pr["lm_free"], iterations=iterations,
+                            cg_iterations=cg_iterations, tol=0.0)
+
+    once()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, X, st = once()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in native.LAUNCHES.items() if v}
+    c0, c1 = float(st.initial_cost), float(st.final_cost)
+    ms_iter = 1e3 * secs / iterations
+    log(f"run_large_ba 1000 cams x 100000 lms ({pr['n_obs']} obs): "
+        f"{ms_iter:.3f} ms per LM iteration ({iterations} LM x "
+        f"{cg_iterations} CG), cost {c0:.6e} -> {c1:.6e}, "
+        f"{int(st.accepted)} accepted, launches {launches}")
+    checks = {"cost decreases": np.isfinite(c1) and c1 < c0,
+              "landmarks finite": bool(torch.isfinite(X).all()),
+              "K2 and K3 launched": launches.get("ba_linearize", 0) > 0
+              and launches.get("schur_apply", 0) > 0}
+    for name, ok in checks.items():
+        log(f"check run_large_ba {name}: {'pass' if ok else 'FAIL'}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"run_large_ba checks failed: {failed}")
+    return dict(ms_per_lm_iter=ms_iter, initial_cost=c0, final_cost=c1,
+                accepted=int(st.accepted), launches=launches)
+
+
+def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
+    """add_frames over the bench.py scan in chunks of keyframe_time_lag
+    frames, then the checks; every counter in ``kernels`` must have been
+    launched by the scan."""
     from sfm_tpu_torch import native
     from sfm_tpu_torch.engine import SfMEngine, run_pending_mapping
     from sfm_tpu_torch.engine.state import scalar
@@ -200,11 +403,15 @@ def run_slice(torch, dev, cfg, K=K, n_frames=N_FRAMES):
     ate, extent = keyframe_ate(traj, fns, rvecs, tvecs)
     pts, _ = eng.get_reconstruction()
     fps = (n_frames - chunk) / steady_s
-    log(f"bootstrap on frame {boot}; {running:.1%} of later frames RUNNING; "
-        f"{n_kf} keyframes {fns.tolist()}; {len(pts)} landmarks; "
-        f"ATE {ate:.5f} over extent {extent:.3f} ({100 * ate / extent:.3f}%)")
-    log(f"first chunk {first_s:.3f} s; amortised {fps:.3f} frames/s over "
-        f"frames {chunk}-{n_frames - 1} (tracking + deferred mapping)")
+    dropped = int(eng.state.ba_dropped_obs)
+    log(f"[{label}] bootstrap on frame {boot}; {running:.1%} of later "
+        f"frames RUNNING; {n_kf} keyframes {fns.tolist()}; {len(pts)} "
+        f"landmarks; ATE {ate:.5f} over extent {extent:.3f} "
+        f"({100 * ate / extent:.3f}%); ba_dropped_obs {dropped} (the last "
+        f"mapping pass); launches {launches}")
+    log(f"[{label}] first chunk {first_s:.3f} s; amortised {fps:.3f} "
+        f"frames/s over frames {chunk}-{n_frames - 1} (tracking + deferred "
+        f"mapping)")
 
     # the mapping pass alone, re-run on the final map's newest keyframe
     slot = int(np.argmax(np.where(eng.state.kfs.valid.cpu().numpy(),
@@ -219,27 +426,28 @@ def run_slice(torch, dev, cfg, K=K, n_frames=N_FRAMES):
             pending_map_slot=scalar(slot, dev)))
         sync()
         map_ms.append(1e3 * (time.perf_counter() - t0))
-    log(f"mapping pass {np.mean(map_ms):.3f} ms mean of 5 "
+    log(f"[{label}] mapping pass {np.mean(map_ms):.3f} ms mean of 5 "
         f"({', '.join(f'{x:.3f}' for x in map_ms)})")
 
     checks = {
         "post-bootstrap frames RUNNING >= 90%": running >= 0.9,
         "keyframes >= 4": n_kf >= 4,
         "sim(3) keyframe ATE < 2% of extent": ate < 0.02 * extent,
-        "K1 launched by the main path": launches["hamming_match"] > 0,
-        "K5 launched by the main path": launches["patch_sampler"] > 0,
         "state on the engine's device": eng.state.lms.xyz.device.type
         == torch.device(dev).type == eng.state.kfs.frames.desc.device.type,
         "landmarks finite": len(pts) > 0 and bool(np.isfinite(pts).all()),
     }
+    for name in kernels:
+        checks[f"{name} launched by the scan"] = launches[name] > 0
     for name, ok in checks.items():
-        log(f"check {name}: {'pass' if ok else 'FAIL'}")
+        log(f"check [{label}] {name}: {'pass' if ok else 'FAIL'}")
     failed = [n for n, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"slice checks failed: {failed}")
+        raise AssertionError(f"{label} checks failed: {failed}")
     return dict(launches=launches, fps=fps, map_ms=float(np.mean(map_ms)),
                 ate_pct=100 * ate / extent, keyframes=n_kf,
-                running=running, bootstrap_frame=boot)
+                running=running, bootstrap_frame=boot,
+                ba_dropped_obs=dropped)
 
 
 def main():
@@ -259,20 +467,27 @@ def main():
         f"({native.BUILD_INFO['path']})")
     log(native.BUILD_INFO.get("ptxas", ""))
     rows = check_kernels(torch, dev)
-    from sfm_tpu_torch.config import SLICE, SfMConfig
-    result = run_slice(torch, dev, SfMConfig(**SLICE))
+    rows.update(check_ba_kernels(torch, dev))
+    from sfm_tpu_torch.config import FLAGSHIP, SLICE, SfMConfig
+    flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
+                         MAIN_PATH)
+    dense = run_slice(torch, dev, SfMConfig(**SLICE), "dense",
+                      ("hamming_match", "patch_sampler"))
+    bench = run_bench_ba(torch, dev)
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
-                            launches=result["launches"][name],
+                            launches=flagship["launches"][name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], shape=r["shape"]))
-    print(json.dumps({"slice": {k: v for k, v in result.items()
-                                if k != "launches"},
-                      "hamming_match_shapes":
-                          rows["hamming_match"]["per_shape"]}))
+    print(json.dumps({
+        "flagship": {k: v for k, v in flagship.items() if k != "launches"},
+        "dense": {k: v for k, v in dense.items() if k != "launches"},
+        "dense_launches": dense["launches"], "run_large_ba": bench,
+        "per_shape": {k: r["per_shape"] for k, r in rows.items()
+                      if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))
     print(card[0])
     print(json.dumps({"ok": True, "device": {

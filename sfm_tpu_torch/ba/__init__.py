@@ -1,5 +1,7 @@
 """Bundle adjustment: Levenberg-Marquardt with analytic Jacobians and
-Schur-complement landmark elimination (the dense solver)."""
+Schur-complement landmark elimination: the dense solver (``core.py``) and
+the implicit-Schur PCG solver (``large.py``, with its kernels K2 in
+``linearize_pallas.py`` and K3 in ``schur_pallas.py``)."""
 
 from .residuals import (Observations, residuals_and_jacobians, huber_weights,
                         apply_pose_update)

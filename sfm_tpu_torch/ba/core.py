@@ -132,6 +132,25 @@ def observations_from_keyframes(kfs, lm_valid) -> Observations:
                         w=linked.to(torch.float32))
 
 
+def observations_from_keyframe_window(kfs, lm_valid, slots, slot_ok
+                                      ) -> Observations:
+    """The COO list of a keyframe-slot window [Wn] only.  Camera indices
+    stay slot ids; rows of unusable slots (slot_ok False or an invalid
+    keyframe) get zero weight."""
+    fr = kfs.frames
+    N = fr.landmark.shape[1]
+    slots = slots.to(torch.int64)
+    lm_idx = fr.landmark[slots].reshape(-1).to(torch.int64)
+    ok_row = kfs.valid[slots] & slot_ok
+    linked = (lm_idx >= 0) & fr.kp_valid[slots].reshape(-1)
+    linked = linked & ok_row.repeat_interleave(N)
+    linked = linked & lm_valid[torch.clamp(lm_idx, min=0)]
+    return Observations(cam_idx=slots.repeat_interleave(N),
+                        lm_idx=torch.where(linked, lm_idx, 0),
+                        uv=fr.xy[slots].reshape(-1, 2),
+                        w=linked.to(torch.float32))
+
+
 def compact_landmarks(lm_valid, capacity: int):
     """Rank live landmark slots into a dense [capacity] range.  Returns
     ``rank`` [L] (slot -> compact id, == capacity for dead or overflow

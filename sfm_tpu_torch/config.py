@@ -15,8 +15,9 @@ here (no-ops), documented where they stand:
 - ``use_pallas_matcher``: on a CUDA tensor every matcher call goes through
   the hand-written Hamming kernel; on a CPU tensor through its plain
   version (the two are exact-equal).
-- ``use_pallas_ba``: the fused BA kernels belong to ``ba_solver="large"``,
-  which this package does not have yet.
+- ``use_pallas_ba``: ``ba_solver="large"`` always runs the JAX package's
+  fused route: on a CUDA tensor through the hand-written K2 / K3 kernels,
+  on a CPU tensor through their plain versions.
 - ``mesh_axis_map`` / ``mesh_axis_data``: JAX mesh axis names.
 """
 
@@ -109,7 +110,7 @@ class SfMConfig:
     ba_lambda_down: float = 2.0
     ba_huber_delta: float = 0.0
     ba_tol: float = 3e-4
-    ba_solver: str = "dense"            # only "dense" is ported so far
+    ba_solver: str = "dense"            # "dense" | "large" ("cg": not yet)
     ba_kmax: int = 16
     use_pallas_ba: bool = False         # no-op here (see module doc)
     ba_cg_iterations: int = 15
@@ -157,16 +158,19 @@ class SfMConfig:
 
 DEFAULT_CONFIG = SfMConfig()
 
-# The flagship single-scan configuration (480x640, 512 keypoints, 32
-# keyframes, 8192 landmarks; the JAX package's __graft_entry__.FLAGSHIP)
-# with the dense BA solver: the large implicit-Schur solver and its
-# kernels are not ported yet, and the bf16 / int8 descriptor paths were TPU
-# MXU choices (the port computes the descriptor in float32).
-SLICE = dict(
+# The flagship single-scan configuration (the JAX package's
+# __graft_entry__.FLAGSHIP, field for field: 480x640, 512 keypoints, 32
+# keyframes, 8192 landmarks, the large implicit-Schur BA solver) with a
+# float32 descriptor: the bf16 / int8 descriptor paths were TPU MXU choices.
+FLAGSHIP = dict(
     max_keypoints=512, max_keyframes=32, max_landmarks=8192,
     image_height=480, image_width=640, pyramid_levels=4,
     use_pallas_matcher=True, detector_approx_topk=True,
     ba_landmark_capacity=2048, feature_dtype="float32", patch_int8=False,
     track_widen_capacity=2048, mapping_reobs_capacity=2048,
-    ba_huber_delta=2.0, ba_solver="dense", ba_kmax=8, ba_cg_iterations=12,
-    ba_iterations=15, use_pallas_ba=False)
+    ba_huber_delta=2.0, ba_solver="large", ba_kmax=8, ba_cg_iterations=12,
+    ba_iterations=15, use_pallas_ba=True)
+
+# The flagship with the dense BA solver in place of the large one (the
+# first slice of the port; kept as the dense solver's end-to-end case).
+SLICE = dict(FLAGSHIP, ba_solver="dense", use_pallas_ba=False)

@@ -7,8 +7,10 @@
     matched with a reprojection-guided window (one batched launch);
  3. landmark culling and link clearing;
  4. keyframe culling;
- 5. bundle adjustment (the dense solver), gauge-fixed on the oldest
-    keyframe;
+ 5. bundle adjustment, gauge-fixed on the oldest keyframe: the dense
+    solver (``ba_solver="dense"``) or the implicit-Schur PCG solver on
+    device-built landmark-major tables (``ba_solver="large"``, with the
+    K2 / K3 kernels on a CUDA device);
  6. map aging."""
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import torch
 
 from ..ba import observations_from_keyframes, run_ba
 from ..ba.core import (compact_ba_problem, compact_landmarks,
+                       observations_from_keyframe_window,
                        scatter_back_landmarks)
+from ..ba.large import ObsTables, build_lm_tables_device, run_large_ba
 from ..config import SfMConfig
 from ..features.match_pallas import match_features_pallas
 from ..geometry.camera import depths, project
@@ -207,10 +211,10 @@ def _reobserve_all(cfg: SfMConfig, cam: CameraParams, state: SfMState,
 
 def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                  new_slot) -> SfMState:
-    if cfg.ba_solver != "dense":
+    if cfg.ba_solver == "cg":
         raise NotImplementedError(
-            f"ba_solver={cfg.ba_solver!r}: only the dense solver is ported "
-            "(ROADMAP.md, still to port: ba/large.py with K2, K3, K4)")
+            "ba_solver='cg' is not ported yet (ROADMAP.md, still to port: "
+            "run_ba_cg with global BA and loop closure)")
     L = cfg.max_landmarks
     state = _triangulate_all_pairs(cfg, cam, state, new_slot)
     state = _reobserve_all(cfg, cam, state, new_slot)
@@ -227,11 +231,21 @@ def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                             min_others=cfg.kf_cull_min_others)
 
     # BA gauge-fixed on the oldest keyframe; with ba_local_window > 0 only
-    # the most recent poses are free
+    # the most recent poses are free, and the large solver also restricts
+    # its observations to the 2x window of recent keyframes (the free ones
+    # plus an anchor band of fixed older ones)
     oldest = torch.argmin(torch.where(kfs.valid, kfs.frames.frame_no,
                                       2 ** 30))
     cam_free = kfs.valid.clone()
     cam_free[oldest] = False
+    large = cfg.ba_solver == "large"
+    local_obs_window = large and cfg.ba_local_window > 0
+    if local_obs_window:
+        w_slots, w_ok = _recent_valid_slots(
+            kfs, min(2 * cfg.ba_local_window, cfg.max_keyframes))
+        obs = observations_from_keyframe_window(kfs, lms.valid, w_slots, w_ok)
+    else:
+        obs = observations_from_keyframes(kfs, lms.valid)
     if cfg.ba_local_window > 0:
         recent, recent_ok = _recent_valid_slots(
             kfs, min(cfg.ba_local_window, cfg.max_keyframes))
@@ -239,17 +253,32 @@ def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                               torch.where(recent_ok, recent,
                                           cfg.max_keyframes), True)
         cam_free = cam_free & in_window
-    obs = observations_from_keyframes(kfs, lms.valid)
-    ba_xyz, ba_lm_free, ba_obs, inv = lms.xyz, lms.valid, obs, None
+    # with the local observation window only the landmarks it observes
+    # enter the problem (and its compaction)
+    ba_valid = lms.valid
+    if local_obs_window:
+        ba_valid = lms.valid & _set_drop(
+            torch.zeros_like(lms.valid),
+            torch.where(obs.w > 0, obs.lm_idx, lms.valid.shape[0]), True)
+    ba_xyz, ba_lm_free, ba_obs, inv = lms.xyz, ba_valid, obs, None
     if 0 < cfg.ba_landmark_capacity < cfg.max_landmarks:
         ba_xyz, ba_lm_free, ba_obs, inv = compact_ba_problem(
-            lms.xyz, lms.valid, obs, cfg.ba_landmark_capacity)
-    rv, tv, xyz, _ = run_ba(
-        cam.Kopt, kfs.frames.rvec, kfs.frames.tvec, ba_xyz, ba_obs,
-        cam_free=cam_free, lm_free=ba_lm_free, iterations=cfg.ba_iterations,
-        lam0=cfg.ba_lambda_init, lam_up=cfg.ba_lambda_up,
-        lam_down=cfg.ba_lambda_down, huber_delta=cfg.ba_huber_delta,
-        tol=cfg.ba_tol)
+            lms.xyz, ba_valid, obs, cfg.ba_landmark_capacity)
+    kw = dict(cam_free=cam_free, lm_free=ba_lm_free,
+              iterations=cfg.ba_iterations, lam0=cfg.ba_lambda_init,
+              lam_up=cfg.ba_lambda_up, lam_down=cfg.ba_lambda_down,
+              huber_delta=cfg.ba_huber_delta, tol=cfg.ba_tol)
+    if large:
+        lm_cam, lm_uv, lm_w, n_dropped = build_lm_tables_device(
+            ba_obs, ba_xyz.shape[0], kmax=cfg.ba_kmax)
+        state = state.replace(ba_dropped_obs=n_dropped)
+        rv, tv, xyz, _ = run_large_ba(
+            cam.Kopt, kfs.frames.rvec, kfs.frames.tvec, ba_xyz,
+            ObsTables(lm_cam, lm_uv, lm_w),
+            cg_iterations=cfg.ba_cg_iterations, **kw)
+    else:
+        rv, tv, xyz, _ = run_ba(cam.Kopt, kfs.frames.rvec, kfs.frames.tvec,
+                                ba_xyz, ba_obs, **kw)
     if inv is not None:
         xyz = scatter_back_landmarks(lms.xyz, xyz, inv)
     kfs = kfs.replace(frames=kfs.frames.replace(rvec=rv, tvec=tv))

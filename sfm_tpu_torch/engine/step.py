@@ -29,8 +29,8 @@ _UNPORTED = (
      "global BA and loop closure"),
     ("loop_detect_every", lambda c: c.loop_detect_every > 0,
      "global BA and loop closure"),
-    ("ba_solver", lambda c: c.ba_solver != "dense",
-     "ba/large.py with K2, K3, K4"),
+    ("ba_solver", lambda c: c.ba_solver == "cg",
+     "run_ba_cg with global BA and loop closure"),
 )
 
 

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds).  The build happens at first use,
-from the sources in this package only, into ``build/sfm_tpu_torch/<hash>``
-at the repository root (git-ignored), keyed on a hash of the sources and
-the flags.  Nothing here runs at import time: the CPU tests import every
-module on a machine without ``nvcc``.
+Each ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  The ``nvcc``
+processes of all sources start together and run in parallel.  The build
+happens at first use, from the sources in this package only, into
+``build/sfm_tpu_torch/<hash>`` at the repository root (git-ignored), keyed
+on a hash of ``csrc/`` and the flags.  Nothing here runs at import time:
+the CPU tests import every module on a machine without ``nvcc``.
 
 Each wrapper keeps a launch count in ``LAUNCHES``: it adds one where it
 launches its kernel, and nowhere else, so a run can show that the main
@@ -27,17 +28,26 @@ _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "sfm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
-LAUNCHES = {"hamming_match": 0, "patch_sampler": 0}
+LAUNCHES = {"hamming_match": 0, "patch_sampler": 0, "ba_linearize": 0,
+            "schur_apply": 0, "schur_gather": 0, "schur_scatter": 0}
 BUILD_INFO = {}
+# the dynamic shared memory one block may use on Hopper (227 KB)
+MAX_SHARED_BYTES = 232448
 _lib = None
+_sm_counts = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# C entry point -> (source stem in csrc/, argument types)
 _SIGNATURES = {
-    "sfm_hamming_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                          _P, _P, _P, _P, _P],
-    "sfm_extract_patches": [_P, _I, _I, _P, _P, _I, _P, _P],
+    "sfm_hamming_match": ("match", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                    _F, _F, _F, _P, _P, _P, _P, _P]),
+    "sfm_extract_patches": ("patches", [_P, _I, _I, _P, _P, _I, _P, _P]),
+    "sfm_ba_linearize": ("linearize", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _F, _I, _P, _P, _P, _P, _P, _P]),
+    "sfm_schur_apply": ("schur", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _P, _P, _P, _P]),
 }
 
 
@@ -58,44 +68,63 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the cached shared library; returns its path.
-    ``BUILD_INFO`` records the seconds spent and the compiler's report."""
+    """Compile every csrc/*.cu into its cached shared library, one ``nvcc``
+    per source, all started together; returns the build directory.
+    ``BUILD_INFO`` records the wall seconds and the compilers' reports."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sorted(_CSRC.iterdir()):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out_dir = _BUILD_ROOT / h.hexdigest()[:16]
-    lib = out_dir / "libsfm_kernels.so"
-    if lib.exists():
-        BUILD_INFO.update(seconds=0.0, cached=True, path=str(lib))
-        return lib
+    libs = {s.stem: out_dir / f"lib{s.stem}.so" for s in sources}
+    if all(p.exists() for p in libs.values()):
+        BUILD_INFO.update(seconds=0.0, cached=True, path=str(out_dir))
+        return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libsfm_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
-    BUILD_INFO.update(seconds=secs, cached=False, path=str(lib),
-                      ptxas=proc.stderr)
-    return lib
+    procs = []
+    for s in sources:
+        tmp = out_dir / f"lib{s.stem}.{os.getpid()}.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(s)]
+        procs.append((s.stem, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports, failed = [], []
+    for stem, tmp, cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+            continue
+        os.replace(tmp, libs[stem])  # atomic: no reader sees half a file
+        reports.append(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False,
+                      path=str(out_dir), ptxas="".join(reports))
+    return out_dir
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+class _Library:
+    """The C entry points of every kernel library, as attributes."""
+
+    def __init__(self, out_dir: Path):
+        loaded = {}
+        for name, (stem, argtypes) in _SIGNATURES.items():
+            if stem not in loaded:
+                loaded[stem] = ctypes.CDLL(str(out_dir / f"lib{stem}.so"))
+            fn = getattr(loaded[stem], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
+            setattr(self, name, fn)
+
+
+def library() -> _Library:
+    """The loaded kernel libraries (built on first call)."""
+    global _lib
+    if _lib is None:
+        _lib = _Library(build())
     return _lib
 
 
@@ -123,3 +152,33 @@ def require_cuda(name: str, t, dtype, shape=None) -> None:
 def stream_handle(device) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# the BA kernels (K2, K3) run one thread per table slot (l, k), a block
+# holding whole landmarks: max(1, 128 // kmax) of them, kmax <= 256; their
+# grids stop at 2 blocks per SM, which bounds the [nblocks, C, ...] scratch
+MAX_KMAX = 256
+_BLOCKS_PER_SM = 2
+
+
+def slot_block(kmax: int):
+    """(landmarks per block step, threads per block) of the BA kernels,
+    as csrc/linearize.cu and csrc/schur.cu size their launches."""
+    if not 1 <= kmax <= MAX_KMAX:
+        raise ValueError(f"kmax={kmax}: the BA kernels take 1..{MAX_KMAX} "
+                         "observation slots per landmark")
+    lpb = max(1, 128 // kmax)
+    return lpb, lpb * kmax
+
+
+def grid_blocks(device, n: int, per_block: int) -> int:
+    """Blocks for a grid-stride loop over ``n`` items: one block per
+    ``per_block`` items, at most 2 blocks per SM, at least 1."""
+    import torch
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return max(1, min((n + per_block - 1) // per_block,
+                      _BLOCKS_PER_SM * _sm_counts[idx]))

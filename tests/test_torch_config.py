@@ -1,5 +1,6 @@
-"""The port's SfMConfig equals the JAX package's field for field, and the
-slice preset is the flagship with the dense solver and float32 features."""
+"""The port's SfMConfig equals the JAX package's field for field; the
+FLAGSHIP preset is the JAX package's flagship with float32 features, and
+SLICE the same with the dense BA solver."""
 
 import dataclasses
 
@@ -7,7 +8,7 @@ import torch_port_util  # noqa: F401  (thread cap)
 
 import __graft_entry__
 from sfm_tpu.config import SfMConfig as JaxConfig
-from sfm_tpu_torch.config import SLICE, SfMConfig
+from sfm_tpu_torch.config import FLAGSHIP, SLICE, SfMConfig
 
 
 def test_fields_and_defaults_match():
@@ -28,3 +29,9 @@ def test_slice_is_flagship_with_dense_solver():
                     use_pallas_ba=False, feature_dtype="float32",
                     patch_int8=False)
     assert SLICE == expected
+
+
+def test_flagship_is_the_jax_flagship_with_float32_features():
+    assert FLAGSHIP == dict(__graft_entry__.FLAGSHIP,
+                            feature_dtype="float32", patch_int8=False)
+    assert FLAGSHIP["ba_solver"] == "large"

@@ -3,7 +3,9 @@
 (a) From JAX engine states carried across with state_from_numpy: one
     tracking step right after bootstrap, on the same frame with the JAX
     PnP samples injected, and one mapping pass on an established map.
-(b) The same SpriteScene scan through both engines at TEST_CFG.
+    Both BA solvers: the dense one and the large implicit-Schur one.
+(b) The same SpriteScene scan through both engines at TEST_CFG, and a
+    port-only scan with the large solver.
 (c) The package imports with JAX made unimportable.
 (d) chip_smoke.py refuses to run without a card."""
 
@@ -160,6 +162,48 @@ def test_mapping_pass_from_jax_state(scan):
     assert np.median(dx) < 5e-3
 
 
+# (ba_kmax, ba_local_window): every observation kept; slots overflowing a
+# kmax of 3 dropped (the counter is compared); the local observation window
+@pytest.mark.parametrize("kmax,window", [(16, 0), (3, 0), (16, 2)])
+def test_large_mapping_pass_from_jax_state(scan, kmax, window):
+    """The mapping pass with ba_solver="large" on the JAX engine's map,
+    against JAX's large solver on its f32 route (use_pallas_ba=False)."""
+    tree = scan["map_state"]
+    cam = scan["jax_eng"].cam
+    cfg_j = dataclasses.replace(TEST_CFG, ba_solver="large", ba_kmax=kmax,
+                                ba_local_window=window, use_pallas_ba=False,
+                                ba_huber_delta=2.0)
+    cfg_t = SfMConfig(**dataclasses.asdict(cfg_j))
+    valid = np.asarray(tree.kfs.valid)
+    slot = int(np.argmax(np.where(valid, tree.kfs.frames.frame_no, -1)))
+    st_j = jax.device_get(jax.jit(lambda s: jax_mapping_pass(
+        cfg_j, cam, s, jnp.asarray(slot, jnp.int32)))(tree))
+    st_t = mapping_pass(cfg_t, _port_cam(), state_from_numpy(tree, "cpu"),
+                        slot)
+    np.testing.assert_array_equal(to_np(st_t.lms.valid),
+                                  np.asarray(st_j.lms.valid))
+    np.testing.assert_array_equal(to_np(st_t.kfs.valid),
+                                  np.asarray(st_j.kfs.valid))
+    assert int(st_t.ba_dropped_obs) == int(st_j.ba_dropped_obs)
+    assert (int(st_t.ba_dropped_obs) > 0) == (kmax == 3)
+    kv = np.asarray(st_j.kfs.valid)
+    # both run the implicit-Schur PCG in f32 with sums in another order:
+    # 1e-4 rad, 3e-3 m (unit baseline) as for the dense pass
+    np.testing.assert_allclose(to_np(st_t.kfs.frames.rvec)[kv],
+                               np.asarray(st_j.kfs.frames.rvec)[kv],
+                               atol=1e-4)
+    np.testing.assert_allclose(to_np(st_t.kfs.frames.tvec)[kv],
+                               np.asarray(st_j.kfs.frames.tvec)[kv],
+                               atol=3e-3)
+    lv = np.asarray(st_j.lms.valid)
+    dx = np.abs(to_np(st_t.lms.xyz) - np.asarray(st_j.lms.xyz))[lv]
+    assert np.median(dx) < 5e-3
+    # the BA moved the map (the comparison is not of untouched inputs)
+    moved = np.abs(np.asarray(st_j.kfs.frames.tvec)
+                   - np.asarray(tree.kfs.frames.tvec))[kv]
+    assert moved.max() > 1e-4
+
+
 def test_scan_matches_jax_engine(scan):
     eng = SfMEngine(TEST_K, (240, 320), None, CFG, device="cpu", seed=0)
     ours = [eng.add_frame(f) for f in scan["frames"]]
@@ -201,6 +245,33 @@ def test_deferred_chunks_track():
     assert int(eng.state.pending_map_slot) == -1
 
 
+def test_large_solver_scan():
+    """The port's engine with ba_solver="large" on the SpriteScene scan
+    (deferred mapping in chunks), with the dense scan's gates."""
+    rng = np.random.default_rng(3)
+    scene = SpriteScene(rng)
+    rvecs, tvecs = strafe_trajectory(N_FRAMES)
+    frames = np.stack([scene.render(TEST_K, rvecs[i], tvecs[i], 240, 320)
+                       for i in range(N_FRAMES)])
+    cfg = dataclasses.replace(CFG, ba_solver="large", ba_kmax=8,
+                              ba_cg_iterations=12, ba_huber_delta=2.0,
+                              ba_landmark_capacity=256)
+    eng = SfMEngine(TEST_K, (240, 320), None, cfg)
+    ms = []
+    for i in range(0, N_FRAMES, cfg.keyframe_time_lag):
+        ms += eng.add_frames(frames[i:i + cfg.keyframe_time_lag])
+    status = np.array([int(m["status"]) for m in ms])
+    boot = int(np.argmax(status == RUNNING))
+    assert boot <= 2 and (status[boot:] == RUNNING).all()
+    assert int(eng.state.kfs.valid.sum()) >= 4
+    assert all(int(m["ba_dropped_obs"]) >= 0 for m in ms)
+    ate, extent = keyframe_ate(eng.get_trajectory(), eng.keyframe_numbers(),
+                               rvecs, tvecs)
+    assert ate < 0.02 * extent, (ate, extent)
+    pts, _ = eng.get_reconstruction()
+    assert len(pts) >= 60 and np.isfinite(pts).all()
+
+
 def test_distorted_camera_scan():
     """Frames rendered through a radial-tangential model, engine given the
     same coefficients: every keypoint is undistorted once into Kopt
@@ -220,11 +291,26 @@ def test_distorted_camera_scan():
     assert ate < 0.08 * extent, (ate, extent)
 
 
+def test_flagship_engine_and_unported_solver():
+    """SfMEngine takes the FLAGSHIP preset (the large solver); the
+    ba_solver "cg" still raises, naming its ROADMAP item."""
+    from sfm_tpu_torch.config import FLAGSHIP
+    K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
+                 np.float32)
+    eng = SfMEngine(K, (480, 640), config=SfMConfig(**FLAGSHIP))
+    assert eng.config.ba_solver == "large" and eng.status == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP.*run_ba_cg"):
+        SfMEngine(K, (480, 640),
+                  config=SfMConfig(**dict(FLAGSHIP, ba_solver="cg")))
+
+
 def test_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import sfm_tpu_torch, sfm_tpu_torch.engine\n"
             "import sfm_tpu_torch.features.match_pallas\n"
             "import sfm_tpu_torch.features.patches_pallas\n"
+            "import sfm_tpu_torch.ba.large, sfm_tpu_torch.ba.schur_pallas\n"
+            "import sfm_tpu_torch.ba.linearize_pallas\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"
             "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

@@ -86,3 +86,38 @@ def texture(rng, h: int, w: int) -> np.ndarray:
         y, x = int(rng.integers(0, h - s)), int(rng.integers(0, w - s))
         img[y:y + s, x:x + s] = rng.uniform(40, 250)
     return img
+
+
+def ba_scene(rng, n_cams: int, n_pts: int, max_obs: int, noise_px=0.0,
+             outlier_p=0.0, dead_p=0.0, min_obs=1):
+    """A BA problem under TEST_K: cameras strafing along x, each landmark
+    seen by min_obs..max_obs consecutive cameras, observations listed in random
+    order (a share dead, w == 0).  Returns numpy (truth, init, obs) with
+    truth / init dicts of rv [C, 3], tv [C, 3], X [L, 3] and obs =
+    (cam_idx, lm_idx, uv, w)."""
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    X = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+                  rng.uniform(4, 8, n_pts)], 1)
+    rv = rng.uniform(-0.05, 0.05, (n_cams, 3))
+    tv = np.stack([-0.25 * np.arange(n_cams), rng.uniform(-.05, .05, n_cams),
+                   rng.uniform(-.05, .05, n_cams)], 1)
+    n_obs = rng.integers(min_obs, max_obs + 1, n_pts)
+    first = rng.integers(0, np.maximum(n_cams - n_obs, 0) + 1)
+    lm_idx = np.repeat(np.arange(n_pts), n_obs)
+    cam_idx = np.concatenate([f + np.arange(n) for f, n in zip(first, n_obs)])
+    cam_idx = np.minimum(cam_idx, n_cams - 1)
+    Rs = np.stack([rodrigues_np(r) for r in rv])
+    p = np.einsum("oab,ob->oa", Rs[cam_idx], X[lm_idx]) + tv[cam_idx]
+    uv = p[:, :2] / p[:, 2:] @ TEST_K[:2, :2].T + TEST_K[:2, 2]
+    uv = uv + rng.normal(0, noise_px, uv.shape) if noise_px else uv
+    uv[rng.uniform(0, 1, len(uv)) < outlier_p] += 30.0
+    w = (rng.uniform(0, 1, len(uv)) >= dead_p).astype(np.float32)
+    order = rng.permutation(len(uv))
+    f = np.float32
+    obs = (cam_idx[order].astype(np.int32), lm_idx[order].astype(np.int32),
+           uv[order].astype(f), w[order])
+    truth = dict(rv=rv.astype(f), tv=tv.astype(f), X=X.astype(f))
+    init = dict(rv=(rv + rng.normal(0, 0.01, rv.shape)).astype(f),
+                tv=(tv + rng.normal(0, 0.02, tv.shape)).astype(f),
+                X=(X + rng.normal(0, 0.05, X.shape)).astype(f))
+    return truth, init, obs
