@@ -7,11 +7,12 @@
 2. builds the CUDA kernels from sfm_tpu_torch/csrc (one nvcc per source,
    all in parallel, sm_90a);
 3. holds each kernel against its plain PyTorch version at the main path's
-   shapes and times both with CUDA events: K1 exact, K5 within 1e-3, and
-   the BA kernels K2 (linearizer) and K3 (Schur apply: full, gather and
-   scatter modes) within 1e-4 of the largest entry, at the flagship's
-   mapping-BA shape (dead rows included) and at benchmarks/bench_ba.py's
-   1000-camera problem;
+   shapes and times both with CUDA events: K1 exact (relocalization's
+   windowless 8192x512 match included), K5 within 1e-3, and the BA kernels
+   K2 (linearizer) and K3 (Schur apply: full, gather and scatter modes)
+   within 1e-4 of the largest entry, at the flagship's mapping-BA shape
+   (dead rows included) and at benchmarks/bench_ba.py's 1000-camera
+   problem;
 4. drives the main path: SfMEngine.add_frames on the synthetic 80-frame
    480x640 strafe scan (the JAX package's bench.py workload) under the
    FLAGSHIP configuration (the large implicit-Schur BA solver), on the card,
@@ -22,8 +23,16 @@
 6. the large solver's second entry point, run_large_ba, at bench_ba.py's
    operating point (1000 cameras, 100k landmarks, 8 LM x 25 CG
    iterations): ms per LM iteration, and the cost must decrease;
-7. prints a JSON line with the kernels' numbers, then the card line, then
-   {"ok": true, "device": {...}} as the last line.
+7. "live": FLAGSHIP on RGB frames through per-frame SfMEngine.add_frame
+   (scan guidance in the step): 40 strafe frames, max_lost_frames + 2
+   blank frames, 20 more; the engine must go LOST, relocalize through K1
+   and P3P within 3 frames, and meet the ATE, guidance and colour checks;
+8. "flow": FLAGSHIP with track_with_flow on 30 frames, and lk_flow timed;
+9. "cli": ``cli.main(["scan", ...])`` on the card with metrics, checkpoint
+   and overlay video, then a --resume run, then the PLY files read back;
+10. prints a JSON line with the phases' numbers, a JSON line with the
+   kernels' numbers, then the card line, then {"ok": true, "device":
+   {...}} as the last line.
 Any failed check raises, and the script exits non-zero."""
 
 import json
@@ -59,6 +68,9 @@ MAIN_PATH = ("hamming_match", "patch_sampler", "ba_linearize", "schur_apply",
 BA_REL_TOL = 1e-4
 K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], np.float32)
 N_FRAMES = 80
+RELOC_K1 = "8192x512 windowless"
+# the live phase: strafe frames before the blanks, and after them
+LIVE_BEFORE, LIVE_AFTER = 40, 20
 
 
 def log(*a):
@@ -77,6 +89,31 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def dev_ms(torch, dev, fn, reps=10):
+    """Milliseconds per call: CUDA events on the card, the host clock on
+    the CPU (where the phases are rehearsed at a small size)."""
+    if torch.device(dev).type == "cuda":
+        return cuda_ms(torch, fn, reps=reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_checks(label, checks):
+    for name, ok in checks.items():
+        log(f"check [{label}] {name}: {'pass' if ok else 'FAIL'}")
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{label} checks failed: {failed}")
 
 
 def in_turns(torch, plain, kernel):
@@ -125,15 +162,25 @@ def check_kernels(torch, dev):
     g = np.random.default_rng(5)
     rows = {}
     # (label, B, Ns, Nt, window centres, min_r, max_r): the main path's
-    # calls — tracking, widen, mapping triangulation, re-observation
+    # calls — tracking, widen, mapping triangulation, re-observation — and
+    # relocalization's windowless global match of every landmark slot
+    # (zero source positions, radius 1e9, of which 20% are live)
     cases = (("512x512", 1, 512, 512, False, 1.5, 40.0),
              ("2048x512 centres", 1, 2048, 512, True, 0.0, 7.0),
              ("9x512x512", 9, 512, 512, False, 1.5, 120.0),
-             ("16x2048x512 centres", 16, 2048, 512, True, 0.0, 7.0))
+             ("16x2048x512 centres", 16, 2048, 512, True, 0.0, 7.0),
+             (RELOC_K1, 1, 8192, 512, False, 0.0, 1e9))
     k1 = []
     for label, B, Ns, Nt, centers, rmin, rmax in cases:
-        args = match_case(torch, g, B, Ns, Nt, centers, dev) + (
-            rmin * rmin, rmax * rmax, 90.0, 0.8)
+        args = match_case(torch, g, B, Ns, Nt, centers, dev)
+        if label == RELOC_K1:
+            args = (args[0], torch.zeros_like(args[1]),
+                    torch.as_tensor(g.uniform(0, 1, (B, Ns)) < 0.2,
+                                    device=dev)) + args[3:]
+        # the radii squared and rounded to f32, as match_features_pallas
+        # passes them
+        args = args + (float(np.float32(rmin * rmin)),
+                       float(np.float32(rmax * rmax)), 90.0, 0.8)
         a = mp.hamming_match_kernel(*args)
         b = mp.hamming_match_plain(*args)
         torch.cuda.synchronize()
@@ -156,7 +203,11 @@ def check_kernels(torch, dev):
                        max_abs_err=err, matches=n_match))
         log(f"K1 {label}: exact, {n_match} matches, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
-    rows["hamming_match"] = dict(k1[-1], per_shape=k1)
+    # the kernels line keeps the batched mapping shape; every shape is in
+    # per_shape
+    rows["hamming_match"] = dict(
+        next(r for r in k1 if r["shape"] == "16x2048x512 centres"),
+        per_shape=k1)
 
     # K5 on a rendered frame's canvas and keypoints (the main path's shape)
     scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
@@ -450,6 +501,230 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
                 ba_dropped_obs=dropped)
 
 
+def run_live(torch, dev, cfg, kernels, K=K, before=LIVE_BEFORE,
+             after=LIVE_AFTER, label="live"):
+    """The live path: per-frame add_frame (inline mapping) on RGB frames
+    with scan guidance: ``before`` strafe frames, max_lost_frames + 2
+    blank frames (the engine goes LOST), then ``after`` more strafe frames
+    (relocalization through K1's windowless match and P3P, then tracking
+    again).  Checks the LOST -> RUNNING recovery, the reloc frame's inliers
+    and K1 launch, the kernels of ``kernels``, the keyframe ATE, the
+    guidance metrics and the landmark colours."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.engine import LOST, RUNNING, SfMEngine
+    from sfm_tpu_torch.guidance import update_guidance
+    from sfm_tpu_torch.synthetic import (SpriteScene, keyframe_ate,
+                                         strafe_trajectory)
+
+    H, W = cfg.image_size
+    n_blank = cfg.max_lost_frames + 2
+    scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
+    rv, tv = strafe_trajectory(before + after, step=0.06, yaw_rate=0.001)
+    frames = [scene.render(K, rv[i], tv[i], H, W, rgb=True)
+              for i in range(before + after)]
+    blank = np.full((H, W, 3), 40.0, np.float32)
+    seq = frames[:before] + [blank] * n_blank + frames[before:]
+    # ground truth by frame number (the blank frames hold the last pose)
+    rv_fn = np.concatenate([rv[:before], np.repeat(rv[before - 1:before],
+                                                   n_blank, 0), rv[before:]])
+    tv_fn = np.concatenate([tv[:before], np.repeat(tv[before - 1:before],
+                                                   n_blank, 0), tv[before:]])
+    staged = [torch.as_tensor(f, device=dev) for f in seq]
+    eng = SfMEngine(K, (H, W), config=cfg, device=dev, seed=0)
+    sync(torch, dev)
+
+    native.reset_launch_counts()
+    metrics, secs, k1 = [], [], []
+    for img in staged:
+        n0 = native.LAUNCHES["hamming_match"]
+        t0 = time.perf_counter()
+        metrics.append(eng.add_frame(img))      # fetches the metrics: synced
+        secs.append(time.perf_counter() - t0)
+        k1.append(native.LAUNCHES["hamming_match"] - n0)
+    launches = dict(native.LAUNCHES)
+
+    status = np.array([int(m["status"]) for m in metrics])
+    end = before + n_blank                      # the first frame after
+    lost = np.nonzero(status == LOST)[0]
+    back = [i for i in range(end, len(seq)) if status[i] == RUNNING]
+    rec = back[0] if back else None
+    boot = int(np.argmax(status == RUNNING))
+    running_after = status[rec:] == RUNNING if rec is not None else [False]
+    traj, fns = eng.get_trajectory(), eng.keyframe_numbers()
+    ate, extent = keyframe_ate(traj, fns, rv_fn, tv_fn)
+    pts, cols = eng.get_reconstruction()
+    guid = [m for m in metrics if int(m["status"]) == RUNNING]
+    guid_ok = all(
+        all(np.isfinite(m[k]).all() for k in ("guid_centroid",
+                                              "guid_bbox_center",
+                                              "guid_bbox_axes",
+                                              "guid_bbox_extent"))
+        and 0 <= m["guid_bbox_center"][0] < W
+        and 0 <= m["guid_bbox_center"][1] < H for m in guid)
+    guid_filled = sum(bool(m["guid_bbox_extent"].any()) for m in guid)
+    # guidance alone on the last frame's state, timed on the device
+    st = eng.state
+    img = staged[-1]
+    guid_ms = dev_ms(torch, dev, lambda: update_guidance(
+        cfg, st.guidance, img, st.lms.xyz, st.lms.valid, eng.cam.Kopt,
+        st.prev.rvec, st.prev.tvec))
+    steady = secs[10:]
+    fps = len(steady) / sum(steady)
+    reloc_ms = 1e3 * secs[rec] if rec is not None else float("nan")
+    log(f"[{label}] bootstrap on frame {boot}; LOST on frames "
+        f"{lost.tolist()}; blanks {before}-{end - 1}; RUNNING again on frame "
+        f"{rec} ({metrics[rec]['n_inliers'] if rec else 0} inliers, "
+        f"{metrics[rec]['n_matches'] if rec else 0} matches, K1 launches "
+        f"{k1[rec] if rec else 0}, {reloc_ms:.3f} ms); {len(fns)} keyframes; "
+        f"{len(pts)} landmarks; ATE {ate:.5f} over extent {extent:.3f} "
+        f"({100 * ate / extent:.3f}%); guidance box on {guid_filled} of "
+        f"{len(guid)} RUNNING frames; launches {launches}")
+    log(f"[{label}] amortised {fps:.3f} frames/s over frames 10-"
+        f"{len(seq) - 1} (per-frame add_frame, inline mapping, guidance); "
+        f"guidance {guid_ms:.4f} ms per frame; reloc frame {reloc_ms:.3f} ms")
+    checks = {
+        "LOST during the blanks": len(lost) > 0 and before <= lost[0] < end,
+        "RUNNING again within 3 frames": rec is not None and rec < end + 3,
+        "RUNNING after the recovery": bool(np.all(running_after)),
+        "reloc inliers >= reloc_min_inliers": rec is not None
+        and int(metrics[rec]["n_inliers"]) >= cfg.reloc_min_inliers,
+        "K1 launched on the reloc frame": rec is not None and k1[rec] > 0,
+        "sim(3) keyframe ATE < 2% of extent": ate < 0.02 * extent,
+        "guidance metrics finite, box centre in the image": guid_ok
+        and guid_filled > 0,
+        "landmark colours not grey": bool(
+            ((cols[:, 0] != cols[:, 1]) | (cols[:, 1] != cols[:, 2])).any()),
+    }
+    for name in kernels:
+        checks[f"{name} launched by the phase"] = launches[name] > 0
+    run_checks(label, checks)
+    return dict(launches=launches, fps=fps, reloc_ms=reloc_ms,
+                reloc_frame=rec, reloc_inliers=int(metrics[rec]["n_inliers"]),
+                reloc_k1_launches=k1[rec], guidance_ms=guid_ms,
+                ate_pct=100 * ate / extent, keyframes=len(fns),
+                lost_frames=lost.tolist())
+
+
+def time_flow(torch, dev, cfg, K=K):
+    """lk_flow alone at the configuration's shape (every keypoint of one
+    frame tracked into the next), ms per call."""
+    from sfm_tpu_torch.features.detect import detect
+    from sfm_tpu_torch.features.flow import lk_flow
+    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+    H, W = cfg.image_size
+    scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
+    rv, tv = strafe_trajectory(2, step=0.06, yaw_rate=0.001)
+    i0, i1 = (torch.as_tensor(scene.render(K, rv[i], tv[i], H, W),
+                              device=dev) for i in range(2))
+    kps = detect(i0, max_keypoints=cfg.max_keypoints,
+                 levels=cfg.pyramid_levels)
+    res = lk_flow(i0, i1, kps.xy, kps.valid, levels=cfg.flow_levels,
+                  iters=cfg.flow_iters)
+    n_ok = int(res.valid.sum())
+    ms = dev_ms(torch, dev, lambda: lk_flow(
+        i0, i1, kps.xy, kps.valid, levels=cfg.flow_levels,
+        iters=cfg.flow_iters))
+    log(f"[flow] lk_flow {kps.xy.shape[0]} points on {H}x{W}: {ms:.4f} ms, "
+        f"{n_ok} of {int(kps.valid.sum())} tracked")
+    return ms
+
+
+CLI_CAPS = dict(max_keypoints=512, max_keyframes=32, max_landmarks=8192)
+
+
+def run_cli(torch, dev, H=480, W=640, K=K, n=24, resume_frames=8,
+            caps=CLI_CAPS):
+    """``python -m sfm_tpu_torch.cli scan`` through ``cli.main`` on an .npy
+    of ``n`` RGB frames in a temporary directory, with metrics, a
+    checkpoint and the overlay video; then a ``--resume`` run from that
+    checkpoint on the scan's next ``resume_frames`` frames; then the PLY
+    files read back.  ``caps`` are the capacity flags of both runs (the
+    CLI's defaults unless given)."""
+    import shutil
+    import tempfile
+
+    from sfm_tpu_torch import cli
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.engine import METRIC_FIELDS, RUNNING
+    from sfm_tpu_torch.io import NativeY4MSource, Y4MSource, load_state
+    from sfm_tpu_torch.io import read_ply
+    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+
+    scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
+    rv, tv = strafe_trajectory(n + resume_frames, step=0.06,
+                               yaw_rate=0.001)
+    d = tempfile.mkdtemp(prefix="sfm_cli_")
+    try:
+        p = lambda name: f"{d}/{name}"  # noqa: E731
+        stack = np.stack([scene.render(K, rv[i], tv[i], H, W, rgb=True)
+                          for i in range(n + resume_frames)]).astype(np.uint8)
+        np.save(p("scan.npy"), stack[:n])
+        np.save(p("more.npy"), stack[n:])
+        cam = ["--fx", str(K[0, 0]), "--fy", str(K[1, 1]), "--cx",
+               str(K[0, 2]), "--cy", str(K[1, 2]), "--device", str(dev)]
+        for k, v in caps.items():
+            cam += ["--" + k.replace("_", "-"), str(v)]
+        t0 = time.perf_counter()
+        rc = cli.main(["scan", "--input", p("scan.npy"), "--output",
+                       p("a.ply"), "--metrics", p("a.jsonl"),
+                       "--checkpoint", p("a.npz"), "--video", p("a.y4m"),
+                       *cam])
+        sync(torch, dev)
+        scan_s = time.perf_counter() - t0
+        rc2 = cli.main(["scan", "--input", p("more.npy"), "--output",
+                        p("b.ply"), "--metrics", p("b.jsonl"),
+                        "--checkpoint", p("b.npz"), "--resume", p("a.npz"),
+                        *cam])
+        # the configuration the CLI builds: the capacities at the frames'
+        # size
+        cfg = SfMConfig(image_height=H, image_width=W, **caps)
+        out = {}
+        for run, frames in (("a", n), ("b", resume_frames)):
+            xyz, rgb = read_ply(p(f"{run}.ply"), native=True)
+            xyz_np, rgb_np = read_ply(p(f"{run}.ply"), native=False)
+            st = load_state(p(f"{run}.npz"), cfg, "cpu")
+            lines = [json.loads(ln) for ln in open(p(f"{run}.jsonl"))]
+            out[run] = dict(points=len(xyz), landmarks=int(st.lms.valid.sum()),
+                            max_abs=float(np.abs(xyz).max()) if len(xyz)
+                            else 0.0, lines=lines, frames=frames,
+                            same_read=np.array_equal(xyz, xyz_np)
+                            and np.array_equal(rgb, rgb_np))
+        video = list(Y4MSource(p("a.y4m")))
+        video_native = list(NativeY4MSource(p("a.y4m")))
+    finally:
+        shutil.rmtree(d)
+    keys = [f[0] for f in METRIC_FIELDS]
+    a, b = out["a"], out["b"]
+    log(f"[cli] scan of {n} frames {scan_s:.3f} s ({n / scan_s:.3f} frames/s, "
+        f"per-frame, overlay video); {a['points']} points (max |xyz| "
+        f"{a['max_abs']:.3f}); resume of {resume_frames} frames: "
+        f"{b['points']} points; last status {a['lines'][-1]['status']} / "
+        f"{b['lines'][-1]['status']}")
+    checks = {"scan and resume exit 0": rc == 0 and rc2 == 0}
+    for run, r in out.items():
+        checks.update({
+            f"{run}: PLY points == reconstruction": r["points"]
+            == r["landmarks"] > 0,
+            f"{run}: max |xyz| == 500 +- 1": abs(r["max_abs"] - 500) <= 1,
+            f"{run}: both PLY readers agree": r["same_read"],
+            f"{run}: one metrics line per frame": len(r["lines"])
+            == r["frames"],
+            f"{run}: metrics carry the StepMetrics keys": all(
+                list(ln) == keys for ln in r["lines"]),
+        })
+    checks["the scan ends RUNNING"] = a["lines"][-1]["status"] == RUNNING
+    checks["the resumed scan tracks on from the checkpoint"] = all(
+        ln["status"] == RUNNING and ln["n_inliers"] >= 15
+        for ln in b["lines"])
+    checks["one video frame per input frame"] = len(video) == n
+    checks["the C++ y4m reader agrees"] = len(video_native) == n and all(
+        np.array_equal(u[0], v[0]) and np.array_equal(u[1], v[1])
+        for u, v in zip(video, video_native))
+    run_checks("cli", checks)
+    return dict(scan_s=scan_s, fps=n / scan_s, points=a["points"],
+                resume_points=b["points"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -474,6 +749,11 @@ def main():
     dense = run_slice(torch, dev, SfMConfig(**SLICE), "dense",
                       ("hamming_match", "patch_sampler"))
     bench = run_bench_ba(torch, dev)
+    live = run_live(torch, dev, SfMConfig(**FLAGSHIP), MAIN_PATH)
+    flow_cfg = SfMConfig(**FLAGSHIP, track_with_flow=True)
+    flow = run_slice(torch, dev, flow_cfg, "flow", MAIN_PATH, n_frames=30)
+    flow["lk_flow_ms"] = time_flow(torch, dev, flow_cfg)
+    cli = run_cli(torch, dev)
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
@@ -486,6 +766,8 @@ def main():
         "flagship": {k: v for k, v in flagship.items() if k != "launches"},
         "dense": {k: v for k, v in dense.items() if k != "launches"},
         "dense_launches": dense["launches"], "run_large_ba": bench,
+        "live": live, "flow": {k: v for k, v in flow.items()
+                               if k != "launches"}, "cli": cli,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))

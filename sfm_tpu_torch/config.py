@@ -63,17 +63,17 @@ class SfMConfig:
     max_reproj_error: float = 7.0
     pnp_hypotheses: int = 32
     pnp_sample_size: int = 6
-    pnp_solver: str = "dlt"             # "p3p" waits for relocalization
+    pnp_solver: str = "dlt"             # "dlt" | "p3p"
     pnp_refine_iters: int = 6
     pnp_fast_path_ratio: float = 0.0
     track_refine_iters: int = 4
     max_lost_frames: int = 10
 
-    # ---- relocalization (not ported yet) ----
+    # ---- relocalization ----
     reloc_solver: str = "p3p"
     reloc_min_inliers: int = 10
 
-    # ---- flow-assisted tracking (not ported yet) ----
+    # ---- flow-assisted tracking ----
     track_with_flow: bool = False
     flow_levels: int = 3
     flow_iters: int = 10
@@ -131,7 +131,7 @@ class SfMConfig:
     loop_scale_min_pairs: int = 8
     loop_scale_max_dispersion: float = 0.15
 
-    # ---- scan guidance (RGB input; not ported yet) ----
+    # ---- scan guidance (RGB input) ----
     guidance_enabled: bool = True
     guidance_downscale: int = 4
     guidance_hist_bins_h: int = 60

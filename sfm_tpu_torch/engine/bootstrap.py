@@ -38,7 +38,8 @@ def bootstrap_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
     if int(state.frame_count) == 0:
         kfs, _ = insert_keyframe(state.kfs, frame)
         st = state.replace(prev=frame, kfs=kfs)
-        return st, metrics(st, frame)
+        return st, metrics(frame, status=st.status,
+                           n_keyframes=kfs.valid.sum())
 
     prev, curr = state.prev, frame
     res = match_features_pallas(
@@ -92,7 +93,8 @@ def bootstrap_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                                init_fail_count=scalar(0, dev))
         else:
             st = state.replace(init_fail_count=scalar(fails, dev))
-        return st, metrics(st, curr, n_matches=n_matches)
+        return st, metrics(curr, status=st.status, n_matches=n_matches,
+                           n_keyframes=st.kfs.valid.sum())
 
     # seed the map: landmarks from the kept matches, seen by both keyframes
     tgt = torch.where(keep, res.idx, 0).to(torch.int64)
@@ -141,7 +143,6 @@ def bootstrap_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
         last_kf_tracked=n_keep.to(torch.int32),
         init_fail_count=scalar(0, dev))
     return st, metrics(
-        st, curr, n_matches=n_matches, n_inliers=n_keep, n_tracked=n_keep,
-        n_keyframes=scalar(2, dev),
-        keyframe_added=torch.tensor(True, device=dev),
-        rvec=rv2[1], tvec=tv2[1])
+        curr, status=st.status, n_matches=n_matches, n_inliers=n_keep,
+        n_tracked=n_keep, n_landmarks=lms2.valid.sum(), n_keyframes=2,
+        keyframe_added=True, rvec=rv2[1], tvec=tv2[1])

@@ -5,6 +5,9 @@ counterpart of the JAX package's state pytree; there are no weights).  The
 scalars are 0-dim tensors on the engine's device.  Randomness is not part
 of the state: the engine owns a ``torch.Generator``.
 
+``metrics`` builds the per-frame metrics with exactly the fields of the JAX
+package's ``StepMetrics``, in its order, dtypes and shapes.
+
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across from the
 JAX package (after ``jax.device_get``) and back."""
 
@@ -20,6 +23,7 @@ from ..config import SfMConfig
 from ..features.descriptor import describe_canvas
 from ..features.detect import detect
 from ..geometry.camera import undistort_pixels
+from ..guidance import GuidanceState, init_guidance
 from ..mapstore import (Frame, KeyframeStore, LandmarkStore, _Tree,
                         empty_frame, empty_keyframes, empty_landmarks)
 
@@ -48,6 +52,9 @@ class SfMState(_Tree):
     rep_desc: torch.Tensor          # [L, W] int32 landmark majority
                                     # descriptors (refreshed per mapping pass)
     pending_map_slot: torch.Tensor  # [] int32 deferred mapping slot (-1 none)
+    prev_image: torch.Tensor        # [H, W] grey image of ``prev`` with
+                                    # track_with_flow, else [1, 1]
+    guidance: GuidanceState         # scan-guidance EMA state
     ba_dropped_obs: torch.Tensor    # [] int32 (the large solver's counter;
                                     # always 0 with the dense solver)
 
@@ -71,32 +78,63 @@ def init_state(cfg: SfMConfig, device) -> SfMState:
         rep_desc=torch.zeros((cfg.max_landmarks, cfg.desc_words),
                              dtype=torch.int32, device=device),
         pending_map_slot=scalar(-1, device),
+        prev_image=torch.zeros(cfg.image_size if cfg.track_with_flow
+                               else (1, 1), device=device),
+        guidance=init_guidance(cfg, device),
         ba_dropped_obs=scalar(0, device),
     )
 
 
-def metrics(state: SfMState, frame: Frame, **kw) -> dict:
+# the JAX package's StepMetrics: field, dtype and shape, in its order
+METRIC_FIELDS = (
+    ("status", torch.int32, ()), ("n_detected", torch.int32, ()),
+    ("n_matches", torch.int32, ()), ("n_inliers", torch.int32, ()),
+    ("n_tracked", torch.int32, ()), ("n_landmarks", torch.int32, ()),
+    ("n_keyframes", torch.int32, ()), ("keyframe_added", torch.bool, ()),
+    ("mean_reproj_err", torch.float32, ()),
+    ("ba_dropped_obs", torch.int32, ()),
+    ("rvec", torch.float32, (3,)), ("tvec", torch.float32, (3,)),
+    ("guid_centroid", torch.float32, (3,)),
+    ("guid_bbox_center", torch.float32, (2,)),
+    ("guid_bbox_axes", torch.float32, (2, 2)),
+    ("guid_bbox_extent", torch.float32, (2,)),
+)
+
+
+def metrics(frame: Frame, **kw) -> dict:
     """Per-frame metrics (tensors on the device; the host fetches a chunk's
-    worth at once).  Unset counters are 0."""
-    dev = state.status.device
-    z = scalar(0, dev)
-    m = dict(status=state.status, n_detected=frame.kp_valid.sum(),
-             n_matches=z, n_inliers=z, n_tracked=z,
-             n_landmarks=state.lms.valid.sum(),
-             n_keyframes=state.kfs.valid.sum(),
-             keyframe_added=torch.tensor(False, device=dev),
-             mean_reproj_err=torch.tensor(0.0, device=dev),
-             ba_dropped_obs=state.ba_dropped_obs,
-             rvec=torch.zeros(3, device=dev), tvec=torch.zeros(3, device=dev))
-    m.update(kw)
+    worth at once): ``n_detected`` from the frame, the fields in ``kw``
+    cast to their dtypes, zeros elsewhere (as ``zero_metrics()._replace``
+    in the JAX package)."""
+    dev = frame.kp_valid.device
+    kw.setdefault("n_detected", frame.kp_valid.sum())
+    m = {}
+    for name, dtype, shape in METRIC_FIELDS:
+        v = kw.pop(name, None)
+        m[name] = (torch.zeros(shape, dtype=dtype, device=dev) if v is None
+                   else torch.as_tensor(v, device=dev).to(dtype)
+                   .reshape(shape))
+    if kw:
+        raise KeyError(f"not a metric: {sorted(kw)}")
     return m
+
+
+def to_gray(image: torch.Tensor) -> torch.Tensor:
+    """[H, W, 3] RGB -> [H, W] luma; [H, W] grey passes through."""
+    if image.dim() == 3:
+        return (0.299 * image[..., 0] + 0.587 * image[..., 1]
+                + 0.114 * image[..., 2])
+    return image
 
 
 def make_frame(cfg: SfMConfig, cam: CameraParams, image: torch.Tensor,
                frame_no: torch.Tensor) -> Frame:
     """Detect, describe, and undistort every keypoint into the Kopt model.
-    ``image`` is [H, W] grey, float32 on the engine's device."""
-    kps, canvas = detect(image, max_keypoints=cfg.max_keypoints,
+    ``image`` is [H, W] grey or [H, W, 3] RGB, float32 on the engine's
+    device: detection runs on its luma, and the keypoint colours are sampled
+    from the RGB image (grey replicated otherwise)."""
+    grey = to_gray(image)
+    kps, canvas = detect(grey, max_keypoints=cfg.max_keypoints,
                          levels=cfg.pyramid_levels,
                          threshold=cfg.fast_threshold,
                          nms_radius=cfg.nms_radius, return_canvas=True)
@@ -105,10 +143,10 @@ def make_frame(cfg: SfMConfig, cam: CameraParams, image: torch.Tensor,
     xy_und = undistort_pixels(cam.K, cam.d, cam.Kopt, kps.xy)
     xi = torch.clamp(kps.xy[:, 0].to(torch.int64), 0, cfg.image_width - 1)
     yi = torch.clamp(kps.xy[:, 1].to(torch.int64), 0, cfg.image_height - 1)
-    grey = image[yi, xi]
+    color = (image[yi, xi] if image.dim() == 3
+             else torch.stack([image[yi, xi]] * 3, dim=-1))
     return Frame(
-        xy=xy_und, xy_dist=kps.xy, desc=desc,
-        color=torch.stack([grey] * 3, dim=-1),
+        xy=xy_und, xy_dist=kps.xy, desc=desc, color=color,
         level=kps.level, score=kps.score, kp_valid=kps.valid,
         landmark=torch.full((cfg.max_keypoints,), -1, dtype=torch.int32,
                             device=image.device),
@@ -133,7 +171,7 @@ def _from_tree(cls, tree, device):
     for f in dataclasses.fields(cls):
         v = getattr(tree, f.name)
         sub = {"prev": Frame, "frames": Frame, "kfs": KeyframeStore,
-               "lms": LandmarkStore}.get(f.name)
+               "lms": LandmarkStore, "guidance": GuidanceState}.get(f.name)
         out[f.name] = (_from_tree(sub, v, device) if sub is not None
                        else _to_torch(v, device))
     return cls(**out)
@@ -147,8 +185,7 @@ def frame_from_numpy(tree, device) -> Frame:
 def state_from_numpy(tree, device) -> SfMState:
     """The JAX package's ``SfMState`` after ``jax.device_get`` (numpy
     leaves; uint32 descriptors are reinterpreted as int32) -> this
-    package's state on ``device``.  The JAX-only fields (PRNG key, flow
-    image, guidance state) are dropped."""
+    package's state on ``device``.  The JAX-only PRNG key is dropped."""
     return _from_tree(SfMState, tree, device)
 
 

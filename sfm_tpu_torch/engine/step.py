@@ -2,10 +2,13 @@
 
 ``step_frame`` dispatches on the 3-state machine NOT_INITIALIZED / RUNNING /
 LOST with a host branch on ``status`` (one small device-to-host read per
-frame).  ``SfMEngine`` mirrors the JAX package's driver: ``add_frame``
-(inline mapping), ``add_frames`` (a chunk of frames with deferred mapping:
-the mapping pass runs once after the chunk), ``get_reconstruction`` and
-``get_trajectory``."""
+frame), keeps the flow reference image in lockstep with the reference
+frame, and runs scan guidance on RGB frames that end RUNNING.
+``SfMEngine`` mirrors the JAX package's driver: ``add_frame`` (inline
+mapping), ``add_frames`` (a chunk of frames with deferred mapping: the
+mapping pass runs once after the chunk), ``get_reconstruction``,
+``get_trajectory``, and ``save`` / ``load`` (checkpoints in the JAX
+package's layout)."""
 
 from __future__ import annotations
 
@@ -16,15 +19,16 @@ import torch
 
 from ..config import SfMConfig
 from ..geometry.camera import optimal_new_camera_matrix
+from ..guidance import update_guidance
 from ..mapstore import add_descriptors, landmark_colors
 from .bootstrap import bootstrap_step
 from .mapping import mapping_pass
+from .reloc import reloc_step
 from .state import (NOT_INITIALIZED, RUNNING, CameraParams, SfMState,
-                    init_state, make_frame, scalar)
+                    init_state, make_frame, scalar, to_gray)
 from .tracking import tracking_step
 
 _UNPORTED = (
-    ("track_with_flow", lambda c: c.track_with_flow, "flow"),
     ("global_ba_every", lambda c: c.global_ba_every > 0,
      "global BA and loop closure"),
     ("loop_detect_every", lambda c: c.loop_detect_every > 0,
@@ -47,8 +51,10 @@ def check_supported(cfg: SfMConfig) -> None:
 def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                image: torch.Tensor, generator: Optional[torch.Generator],
                defer_mapping: bool = False) -> Tuple[SfMState, dict]:
-    """One frame: (state, grey image [H, W]) -> (state, metrics)."""
+    """One frame: (state, image [H, W] grey or [H, W, 3] RGB) -> (state,
+    metrics)."""
     frame = make_frame(cfg, cam, image, state.frame_count)
+    grey = to_gray(image)
     status = int(state.status)
     if status == NOT_INITIALIZED:
         state, m = bootstrap_step(cfg, cam, state, frame, generator)
@@ -56,11 +62,24 @@ def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
         mapping_fn = None if defer_mapping else (
             lambda st, slot: mapping_pass(cfg, cam, st, slot))
         state, m = tracking_step(cfg, cam, state, frame, mapping_fn,
-                                 generator)
+                                 generator, image=grey)
     else:
-        raise NotImplementedError(
-            "the engine is LOST and relocalization is not ported yet "
-            "(ROADMAP.md, still to port: reloc with p3p)")
+        state, m = reloc_step(cfg, cam, state, frame, generator)
+    if cfg.track_with_flow:
+        # the branch adopted this frame as ``prev`` iff the frame numbers
+        # match (bootstrap reference advance, tracking swap, recovery)
+        took = state.prev.frame_no == frame.frame_no
+        state = state.replace(
+            prev_image=torch.where(took, grey, state.prev_image))
+    if image.dim() == 3 and cfg.guidance_enabled and \
+            int(state.status) == RUNNING:
+        gs, out = update_guidance(cfg, state.guidance, image,
+                                  state.lms.xyz, state.lms.valid, cam.Kopt,
+                                  state.prev.rvec, state.prev.tvec)
+        state = state.replace(guidance=gs)
+        m.update(guid_centroid=out.centroid, guid_bbox_center=out.bbox_center,
+                 guid_bbox_axes=out.bbox_axes,
+                 guid_bbox_extent=out.bbox_extent)
     return state.replace(frame_count=state.frame_count + 1), m
 
 
@@ -132,22 +151,22 @@ class SfMEngine:
         self.metrics_log = []
 
     def _images(self, images, batched: bool) -> torch.Tensor:
+        """Frames as float32 on the device: RGB stays RGB when guidance is
+        on (real landmark colours, guidance in the step) and becomes luma
+        otherwise."""
         if not torch.is_tensor(images):
             images = np.asarray(images, np.float32)
         imgs = torch.as_tensor(images, dtype=torch.float32,
                                device=self.device)
-        if imgs.dim() == (4 if batched else 3):
-            if self.config.guidance_enabled:
-                raise NotImplementedError(
-                    "RGB input with guidance_enabled: scan guidance is not "
-                    "ported yet (ROADMAP.md, still to port: guidance)")
+        if imgs.dim() == (4 if batched else 3) and \
+                not self.config.guidance_enabled:
             imgs = (0.299 * imgs[..., 0] + 0.587 * imgs[..., 1]
                     + 0.114 * imgs[..., 2])
         return imgs
 
     def add_frame(self, image) -> dict:
         """Process one frame (mapping runs inline on a keyframe).  image:
-        [H, W] grey, uint8 or float."""
+        [H, W] grey or [H, W, 3] RGB, uint8 or float."""
         self.state, m = step_frame(self.config, self.cam, self.state,
                                    self._images(image, False), self.generator)
         out = _fetch([m])[0]
@@ -155,9 +174,10 @@ class SfMEngine:
         return out
 
     def add_frames(self, images) -> list:
-        """Process a chunk of frames [T, H, W].  Chunks no longer than
-        ``keyframe_time_lag`` defer mapping to one pass after the chunk (at
-        most one keyframe can be pending); longer chunks map inline."""
+        """Process a chunk of frames [T, H, W] or [T, H, W, 3].  Chunks no
+        longer than ``keyframe_time_lag`` defer mapping to one pass after
+        the chunk (at most one keyframe can be pending); longer chunks map
+        inline."""
         imgs = self._images(images, True)
         deferred = imgs.shape[0] <= self.config.keyframe_time_lag
         ms = []
@@ -190,6 +210,17 @@ class SfMEngine:
         tv = kfs.frames.tvec.cpu().numpy()[valid]
         order = np.argsort(fn)
         return np.concatenate([rv[order], tv[order]], axis=1)
+
+    def save(self, path: str) -> None:
+        """Checkpoint the whole engine state (the JAX package's npz
+        layout: either package resumes from it)."""
+        from ..io.checkpoint import save_state
+        save_state(path, self.state)
+
+    def load(self, path: str) -> None:
+        """Resume from a checkpoint written with the same SfMConfig."""
+        from ..io.checkpoint import load_state
+        self.state = load_state(path, self.config, self.device)
 
     def keyframe_numbers(self) -> np.ndarray:
         """Frame numbers of the valid keyframes, sorted."""

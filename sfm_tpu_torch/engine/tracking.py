@@ -14,6 +14,7 @@ import torch
 
 from ..ba.core import compact_landmarks
 from ..config import SfMConfig
+from ..features.flow import associate_flow_to_features, lk_flow
 from ..features.match_pallas import match_features_pallas
 from ..geometry.camera import depths, project
 from ..geometry.pnp import refine_pose, reprojection_errors
@@ -69,15 +70,13 @@ def _kf_pose(st: SfMState, frame_no, default, which: str):
 
 
 def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
-                  mapping_fn=None, generator=None, pnp_samples=None):
+                  mapping_fn=None, generator=None, pnp_samples=None,
+                  image=None):
     """One RUNNING-state step.  ``mapping_fn(state, slot) -> state`` runs
     when a keyframe is inserted; None defers it (the slot is recorded in
     ``pending_map_slot``).  ``pnp_samples`` optionally injects the PnP
-    RANSAC sample indices."""
-    if cfg.track_with_flow:
-        raise NotImplementedError(
-            "track_with_flow: LK flow is not ported yet (ROADMAP.md, still "
-            "to port: flow)")
+    RANSAC sample indices.  ``image`` is the frame's grey image, used only
+    with cfg.track_with_flow."""
     dev = state.status.device
     prev, curr = state.prev, frame
     N = curr.landmark.shape[0]
@@ -87,6 +86,21 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
         prev.desc, prev.xy, src_valid, curr.desc, curr.xy, curr.kp_valid,
         min_radius=cfg.match_min_radius, max_radius=cfg.match_max_radius,
         max_distance=cfg.match_max_distance, ratio=cfg.match_ratio)
+    if cfg.track_with_flow and image is not None:
+        # flow-assisted recall: LK-track the map-linked features whose
+        # descriptor match failed and associate the endpoints with still
+        # unmatched detections, in distorted pixel space
+        flow = lk_flow(state.prev_image, image, prev.xy_dist, src_valid,
+                       levels=cfg.flow_levels, iters=cfg.flow_iters)
+        fidx, fok = associate_flow_to_features(
+            flow.xy, flow.valid, curr.xy_dist, curr.kp_valid,
+            max_dist=cfg.flow_assoc_dist)
+        taken = _set_drop(torch.zeros(N, dtype=torch.bool, device=dev),
+                          torch.where(res.mask, res.idx, N), True)
+        use_flow = fok & ~res.mask & ~taken[torch.where(fok, fidx, 0).to(
+            torch.int64)]
+        res = res._replace(idx=torch.where(use_flow, fidx, res.idx),
+                           mask=res.mask | use_flow)
     n_matches = res.mask.sum()
 
     if int(n_matches) < cfg.min_features:
@@ -94,7 +108,9 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
         status = LOST if lost > cfg.max_lost_frames else RUNNING
         st = state.replace(lost_count=scalar(lost, dev),
                            status=scalar(status, dev))
-        return st, metrics(st, curr, n_matches=n_matches, rvec=prev.rvec,
+        return st, metrics(curr, status=st.status, n_matches=n_matches,
+                           n_landmarks=st.lms.valid.sum(),
+                           n_keyframes=st.kfs.valid.sum(), rvec=prev.rvec,
                            tvec=prev.tvec)
 
     lms = state.lms
@@ -174,6 +190,8 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
         st.last_kf_frame_no == curr.frame_no)
     st = st.replace(prev=new_prev, lms=increment_age(st.lms, 1, 0))
     return st, metrics(
-        st, curr, n_matches=n_matches, n_inliers=pnp.n_inliers,
-        n_tracked=n_tracked, keyframe_added=kf_added,
-        mean_reproj_err=mean_err, rvec=new_prev.rvec, tvec=new_prev.tvec)
+        curr, status=st.status, n_matches=n_matches, n_inliers=pnp.n_inliers,
+        n_tracked=n_tracked, n_landmarks=st.lms.valid.sum(),
+        n_keyframes=st.kfs.valid.sum(), keyframe_added=kf_added,
+        mean_reproj_err=mean_err, ba_dropped_obs=st.ba_dropped_obs,
+        rvec=new_prev.rvec, tvec=new_prev.tvec)

@@ -1,6 +1,5 @@
-"""Perspective-n-Point: DLT pose from 2D-3D correspondences and
-Gauss-Newton pose refinement.  ``p3p`` belongs to relocalization and is not
-ported yet."""
+"""Perspective-n-Point: DLT pose from 2D-3D correspondences, the Grunert
+P3P minimal solver, and Gauss-Newton pose refinement."""
 
 from __future__ import annotations
 
@@ -9,6 +8,7 @@ import math
 import torch
 
 from .camera import project
+from .poly import quartic_roots
 from .rotations import exp_so3, hat, log_so3, nearest_rotation
 
 
@@ -48,6 +48,79 @@ def pnp_dlt(K, xyz, uv, w):
     t_n = P[..., 3] / torch.clamp(scale, min=1e-12)[..., None]
     t = t_n / s3[..., None] - (R @ mean3[..., None])[..., 0]
     return log_so3(R), t
+
+
+def p3p(K, xyz3, uv3):
+    """Grunert P3P: up to 4 camera poses from exactly 3 correspondences,
+    batched over leading dimensions.  xyz3 [..., 3, 3] world points, uv3
+    [..., 3, 2] pixels.  Returns (rvecs [..., 4, 3], tvecs [..., 4, 3],
+    valid [..., 4]); invalid candidates are zeros.
+
+    A quartic in the distance ratio v = s3/s1 (Haralick et al.'s review of
+    the three-point problem), Newton-polished together with u = s2/s1, then
+    the rigid transform of the three camera-frame points by Kabsch."""
+    Kinv = torch.linalg.inv(K)
+    f = torch.cat([uv3, torch.ones_like(uv3[..., :1])], -1) @ Kinv.T
+    f = f / torch.linalg.norm(f, dim=-1, keepdim=True)   # bearing vectors
+    P1, P2, P3 = xyz3.unbind(-2)
+    f1, f2, f3 = f.unbind(-2)
+    ca = torch.sum(f2 * f3, -1)    # angle opposite side a = |P2 - P3|
+    cb = torch.sum(f1 * f3, -1)    # angle opposite side b = |P1 - P3|
+    cg = torch.sum(f1 * f2, -1)    # angle opposite side c = |P1 - P2|
+    a2 = torch.sum((P2 - P3) ** 2, -1)
+    b2 = torch.clamp(torch.sum((P1 - P3) ** 2, -1), min=1e-12)
+    c2 = torch.sum((P1 - P2) ** 2, -1)
+    A = a2 / b2
+    C = c2 / b2
+    qr = (a2 - c2) / b2
+    A4 = (qr - 1.0) ** 2 - 4.0 * C * ca * ca
+    A3 = 4.0 * (qr * (1.0 - qr) * cb - (1.0 - (A + C)) * ca * cg
+                + 2.0 * C * ca * ca * cb)
+    A2_ = 2.0 * (qr * qr - 1.0 + 2.0 * qr * qr * cb * cb
+                 + 2.0 * (1.0 - C) * ca * ca
+                 - 4.0 * (A + C) * ca * cb * cg + 2.0 * (1.0 - A) * cg * cg)
+    A1 = 4.0 * (-qr * (1.0 + qr) * cb + 2.0 * A * cg * cg * cb
+                - (1.0 - (A + C)) * ca * cg)
+    A0 = (1.0 + qr) ** 2 - 4.0 * A * cg * cg
+    v, v_ok = quartic_roots(A4, A3, A2_, A1, A0)         # [..., 4]
+
+    A, C, qr, ca, cb, cg, b2 = (x[..., None] for x in (A, C, qr, ca, cb, cg,
+                                                       b2))
+    den = 2.0 * (cg - v * ca)
+    den = torch.where(torch.abs(den) < 1e-9, torch.sign(den) * 1e-9 + 1e-12,
+                      den)
+    u = ((qr - 1.0) * v * v - 2.0 * qr * cb * v + 1.0 + qr) / den
+    # Newton-polish (u, v) on the two distance-ratio equations
+    for _ in range(3):
+        g1 = u * u + v * v - 2 * u * v * ca - A * (1 + v * v - 2 * v * cb)
+        g2 = 1 + u * u - 2 * u * cg - C * (1 + v * v - 2 * v * cb)
+        J11 = 2 * u - 2 * v * ca
+        J12 = 2 * v - 2 * u * ca - A * (2 * v - 2 * cb)
+        J21 = 2 * u - 2 * cg
+        J22 = -C * (2 * v - 2 * cb)
+        det = J11 * J22 - J12 * J21
+        det = torch.where(torch.abs(det) < 1e-9, 1e-9, det)
+        u = u - (J22 * g1 - J12 * g2) / det
+        v = v - (-J21 * g1 + J11 * g2) / det
+
+    s1 = torch.sqrt(b2 / torch.clamp(1 + v * v - 2 * v * cb, min=1e-12))
+    s = torch.stack([s1, u * s1, v * s1], -1)            # [..., 4, 3]
+    ok = v_ok & (s > 0).all(-1)
+
+    # Kabsch for each candidate: camera-frame points s_i f_i against xyz3
+    C_pts = s[..., :, :, None] * f[..., None, :, :]     # [..., 4, 3, 3]
+    Pm = xyz3.mean(-2)
+    Cm = C_pts.mean(-2)
+    M = (C_pts - Cm[..., None, :]).transpose(-1, -2) @ (
+        xyz3 - Pm[..., None, :])[..., None, :, :]
+    finite = torch.isfinite(M).all(-1).all(-1)
+    R = nearest_rotation(torch.where(finite[..., None, None], M, 0.0))
+    t = Cm - (R @ Pm[..., None, :, None])[..., 0]
+    rvs = log_so3(R)
+    ok = ok & finite & torch.isfinite(rvs).all(-1) & torch.isfinite(t).all(-1)
+    rvs = torch.where(ok[..., None], torch.nan_to_num(rvs), 0.0)
+    tvs = torch.where(ok[..., None], torch.nan_to_num(t), 0.0)
+    return rvs, tvs, ok
 
 
 def _pose_residual_jac(K, rvec, tvec, xyz, uv, w):

@@ -14,7 +14,7 @@ import torch
 
 from .geometry.epipolar import epiline_distance_sq
 from .geometry.estimation import estimate_fundamental
-from .geometry.pnp import pnp_dlt, refine_pose, reprojection_errors
+from .geometry.pnp import p3p, pnp_dlt, refine_pose, reprojection_errors
 
 
 def sample_masked(generator: Optional[torch.Generator], valid: torch.Tensor,
@@ -77,15 +77,16 @@ def ransac_pnp(generator, K, xyz, uv, valid, *, n_hypotheses: int = 64,
                prior_rvec=None, prior_tvec=None,
                fast_path_ratio: float = 0.0, solver: str = "dlt",
                samples=None) -> PnPResult:
-    """PnP RANSAC: ``n_hypotheses`` DLT poses plus (optionally) the prior
-    pose; the best by inlier count is refined with Gauss-Newton on its
-    inliers twice (refine -> recount -> refine), then inliers recomputed.
-    fast_path_ratio > 0 tries the refined prior first and skips the batch
-    when it explains that fraction of the valid matches."""
-    if solver != "dlt":
-        raise NotImplementedError(
-            "pnp_solver='p3p' waits for the relocalization port "
-            "(ROADMAP.md, still to port: reloc with p3p)")
+    """PnP RANSAC: ``n_hypotheses`` minimal-sample poses plus (optionally)
+    the prior pose; the best by inlier count is refined with Gauss-Newton
+    on its inliers twice (refine -> recount -> refine), then inliers
+    recomputed.  ``solver`` "dlt" solves ``sample_size``-point DLTs; "p3p"
+    takes 3-point samples and scores the 4 Grunert candidates of each (an
+    invalid candidate counts -1 inliers).  fast_path_ratio > 0 tries the
+    refined prior first and skips the batch when it explains that fraction
+    of the valid matches."""
+    if solver not in ("dlt", "p3p"):
+        raise ValueError(f"unknown PnP solver {solver!r} (dlt or p3p)")
 
     def refined(rv, tv):
         for _ in range(2):
@@ -101,10 +102,19 @@ def ransac_pnp(generator, K, xyz, uv, valid, *, n_hypotheses: int = 64,
             return PnPResult(rv, tv, inl, n, n >= min_inliers)
 
     if samples is None:
-        samples = sample_masked(generator, valid, n_hypotheses, sample_size)
-    rvs, tvs = pnp_dlt(K, xyz, uv, _sample_weights(samples, valid))
-    err = reprojection_errors(K, rvs, tvs, xyz, uv)
-    counts = ((err < threshold) & valid).sum(-1)
+        samples = sample_masked(generator, valid, n_hypotheses,
+                                3 if solver == "p3p" else sample_size)
+    if solver == "p3p":
+        idx = samples.to(torch.int64)
+        rvs, tvs, ok = p3p(K, xyz[idx], uv[idx])        # [n_hyp, 4, ...]
+        err = reprojection_errors(K, rvs, tvs, xyz, uv)
+        counts = torch.where(ok, ((err < threshold) & valid).sum(-1), -1)
+        rvs, tvs, counts = (rvs.reshape(-1, 3), tvs.reshape(-1, 3),
+                            counts.reshape(-1))
+    else:
+        rvs, tvs = pnp_dlt(K, xyz, uv, _sample_weights(samples, valid))
+        err = reprojection_errors(K, rvs, tvs, xyz, uv)
+        counts = ((err < threshold) & valid).sum(-1)
     if prior_rvec is not None:
         err_p = reprojection_errors(K, prior_rvec, prior_tvec, xyz, uv)
         n_p = ((err_p < threshold) & valid).sum()

@@ -311,6 +311,12 @@ def test_imports_without_jax():
             "import sfm_tpu_torch.features.patches_pallas\n"
             "import sfm_tpu_torch.ba.large, sfm_tpu_torch.ba.schur_pallas\n"
             "import sfm_tpu_torch.ba.linearize_pallas\n"
+            "import sfm_tpu_torch.cli, sfm_tpu_torch.guidance\n"
+            "import sfm_tpu_torch.viz, sfm_tpu_torch.engine.reloc\n"
+            "import sfm_tpu_torch.features.flow, sfm_tpu_torch.geometry.poly\n"
+            "import sfm_tpu_torch.io, sfm_tpu_torch.io.ply\n"
+            "import sfm_tpu_torch.io.video, sfm_tpu_torch.io.checkpoint\n"
+            "import sfm_tpu_torch.io.runtime, sfm_tpu_torch.io.tum\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"
             "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

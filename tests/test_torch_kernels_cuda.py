@@ -52,6 +52,26 @@ def test_hamming_kernel_equals_plain(cuda, B, ns, nt, centers):
         assert torch.equal(a, b)
 
 
+def test_hamming_kernel_reloc_shape(cuda):
+    """Relocalization's windowless global match: all 8192 landmark slots
+    (20% live, zero positions) against 512 keypoints, radius 1e9 (1e18
+    squared in float32)."""
+    rng = np.random.default_rng(8192)
+    d0, _, _, d1, xy1, v1 = match_case(rng, 8192, 512)
+    v0 = rng.uniform(0, 1, 8192) < 0.2
+    t = [to_t(a[None]).to(cuda) for a in (d0, np.zeros((8192, 2), np.float32),
+                                          v0, d1, xy1, v1)]
+    args = (*t, 0.0, float(np.float32(1e9 * 1e9)), 90.0, 0.8)
+    out = mp.hamming_match_kernel(*args)
+    ref = mp.hamming_match_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    res = mp.match_features_pallas(*t, min_radius=0.0, max_radius=1e9,
+                                   max_distance=90.0, ratio=0.8)
+    assert int(res.mask.sum()) > 100
+
+
 def test_patch_kernel_equals_plain(cuda):
     rng = np.random.default_rng(0)
     canvas = to_t(rng.uniform(0, 255, (480, 1200)).astype(np.float32)).to(cuda)

@@ -1,0 +1,197 @@
+"""The P3P minimal solver and the p3p RANSAC against the JAX package.
+
+Tolerances: quartic roots rtol 1e-4 (against JAX and numpy.roots); P3P
+candidate poses 1e-4 rad / 1e-4 m, compared as sets (the candidate order
+follows the Ferrari root order, which two float32 programs may permute);
+ransac_pnp(solver="p3p") with the JAX samples injected: the same pose to
+1e-4 and the same inliers."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import TEST_K, to_np, to_t
+
+from sfm_tpu.geometry.pnp import p3p as jax_p3p
+from sfm_tpu.geometry.poly import quartic_roots as jax_quartic
+from sfm_tpu.ransac import ransac_pnp as jax_ransac_pnp
+from sfm_tpu.ransac import sample_masked as jax_sample_masked
+from sfm_tpu_torch.geometry.pnp import p3p
+from sfm_tpu_torch.geometry.poly import quartic_roots, real_cubic_root
+from sfm_tpu_torch.np_geometry import project_np, rodrigues_np
+from sfm_tpu_torch.ransac import ransac_pnp
+
+
+def _quartics(rng, n):
+    """Quartics with 4, 2 or 0 real roots: products of (x - r) factors and
+    x^2 + px + q factors with complex roots."""
+    out = []
+    for i in range(n):
+        r = rng.uniform(-3, 3, 4)
+        if i % 3 == 1:
+            r = r[:2]
+        elif i % 3 == 2:
+            r = r[:0]
+        c = np.atleast_1d(np.poly(r)) * rng.uniform(0.5, 2.0)
+        while len(c) < 5:   # complex pairs
+            p, q = rng.uniform(-1, 1), rng.uniform(1.5, 3)
+            c = np.polymul(c, [1.0, p, q])
+        out.append(c)
+    return np.asarray(out, np.float32)
+
+
+def test_real_cubic_root_is_a_root():
+    rng = np.random.default_rng(0)
+    b, c, d = (rng.uniform(-3, 3, 64).astype(np.float32) for _ in range(3))
+    x = to_np(real_cubic_root(to_t(b), to_t(c), to_t(d))).astype(np.float64)
+    for i in range(64):
+        roots = np.roots([1.0, b[i], c[i], d[i]])
+        real = roots[np.abs(roots.imag) < 1e-6].real
+        assert np.min(np.abs(real - x[i])) < 1e-3 * max(1, np.abs(x[i]))
+
+
+def test_quartic_roots_match_jax_and_numpy():
+    coef = _quartics(np.random.default_rng(1), 90)
+    args_t = [to_t(coef[:, i]) for i in range(5)]
+    roots, valid = (to_np(a) for a in quartic_roots(*args_t))
+    roots_j, valid_j = (np.asarray(a) for a in
+                        jax_quartic(*[jnp.asarray(coef[:, i])
+                                      for i in range(5)]))
+    np.testing.assert_array_equal(valid, valid_j)
+    np.testing.assert_allclose(roots, roots_j, rtol=1e-4, atol=1e-4)
+    # every real root is found (both packages may also report a spurious
+    # pair for a quartic without real roots: P3P's positive-distance and
+    # reprojection checks screen those)
+    n_real = 0
+    for i in range(len(coef)):
+        ref = np.roots(coef[i].astype(np.float64))
+        got = roots[i][valid[i]]
+        for x in ref[np.abs(ref.imag) < 1e-3].real:
+            assert np.min(np.abs(got - x)) <= 1e-4 * max(1.0, abs(x)), (i, x)
+            n_real += 1
+    assert n_real == 4 * 30 + 2 * 30
+
+
+def _triples(rng, n):
+    """Well-posed triples: points 3-8 m in front of a random camera,
+    spread over the image, each side at least 0.5 m and each pair of
+    bearings at least 10 degrees apart."""
+    xyz, uv, rv, tv = [], [], [], []
+    while len(xyz) < n:
+        r = rng.uniform(-0.4, 0.4, 3)
+        t = rng.uniform(-1, 1, 3)
+        R = rodrigues_np(r)
+        cam = np.stack([rng.uniform(-2, 2, 3), rng.uniform(-1.5, 1.5, 3),
+                        rng.uniform(3, 8, 3)], 1)
+        X = (cam - t) @ R        # world = R^T (cam - t)
+        f = cam / np.linalg.norm(cam, axis=1, keepdims=True)
+        if min(np.linalg.norm(X[i] - X[j]) for i, j in
+               ((0, 1), (0, 2), (1, 2))) < 0.5 or max(
+                   f[i] @ f[j] for i, j in ((0, 1), (0, 2), (1, 2))) > \
+                np.cos(np.radians(10)):
+            continue
+        xyz.append(X)
+        uv.append(project_np(TEST_K, R, t, X))
+        rv.append(r)
+        tv.append(t)
+    f = np.float32
+    return (np.asarray(xyz, f), np.asarray(uv, f), np.asarray(rv, f),
+            np.asarray(tv, f))
+
+
+def test_p3p_candidates_match_jax():
+    """Candidate sets compared as sets.  Two float32 programs disagree in
+    two ways, both from the conditioning of P3P, not from the port:
+    (a) where a pair of quartic roots is nearly double, the sign of a
+    discriminant near 0 decides whether the pair is real (measured: 4 of
+    these 200 triples; bounded at 4%); (b) some exact solutions move with
+    the last bits of the distance ratios (measured: 12 of 381 candidates
+    beyond 1e-4, the largest 6.2e-3; bounded at 5% beyond 1e-4, none
+    beyond 1e-2)."""
+    rng = np.random.default_rng(2)
+    xyz, uv, rv, tv = _triples(rng, 200)
+    rvs, tvs, ok = (to_np(a) for a in p3p(to_t(TEST_K), to_t(xyz), to_t(uv)))
+    assert rvs.shape == (200, 4, 3) and ok.shape == (200, 4)
+    fn = jax.jit(jax.vmap(lambda a, b: jax_p3p(jnp.asarray(TEST_K), a, b)))
+    rvs_j, tvs_j, ok_j = (np.asarray(a) for a in fn(jnp.asarray(xyz),
+                                                    jnp.asarray(uv)))
+    found = compared = 0
+    dists = []
+    for i in range(200):
+        assert not rvs[i][~ok[i]].any() and not tvs[i][~ok[i]].any()
+        # the true pose is among the candidates
+        err = (np.abs(rvs[i] - rv[i]).max(-1) + np.abs(tvs[i] - tv[i]).max(-1))
+        found += bool((err[ok[i]] < 1e-3).any())
+        if ok[i].sum() != ok_j[i].sum():
+            continue
+        compared += 1
+        # the nearest port candidate to each JAX candidate
+        for k in np.flatnonzero(ok_j[i]):
+            dists.append(np.maximum(
+                np.abs(rvs[i][ok[i]] - rvs_j[i, k]).max(-1),
+                np.abs(tvs[i][ok[i]] - tvs_j[i, k]).max(-1)).min())
+    dists = np.asarray(dists)
+    assert compared >= 192 and found >= 194, (compared, found)
+    assert (dists > 1e-4).mean() <= 0.05 and dists.max() < 1e-2, \
+        np.sort(dists)[-10:]
+
+
+def test_p3p_degenerate_triples_are_invalid():
+    xyz = np.array([[[0, 0, 5], [1, 0, 5], [2, 0, 5]],      # collinear
+                    [[0, 0, 5], [0, 0, 5], [1, 1, 5]]],     # repeated
+                   np.float32)
+    uv = project_np(TEST_K, np.eye(3), np.zeros(3),
+                    xyz.reshape(-1, 3)).reshape(2, 3, 2).astype(np.float32)
+    rvs, tvs, ok = p3p(to_t(TEST_K), to_t(xyz), to_t(uv))
+    assert torch.isfinite(rvs).all() and torch.isfinite(tvs).all()
+    assert not torch.where(ok[..., None], 0.0, rvs).any()
+
+
+def _pnp_scene(rng, n=120, outlier_p=0.4):
+    r = np.array([0.05, -0.1, 0.02])
+    t = np.array([0.3, -0.1, 0.2])
+    R = rodrigues_np(r)
+    cam = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                    rng.uniform(4, 8, n)], 1)
+    X = (cam - t) @ R
+    uv = project_np(TEST_K, R, t, X) + rng.normal(0, 0.5, (n, 2))
+    out = rng.uniform(0, 1, n) < outlier_p
+    uv[out] = rng.uniform(0, [320, 240], (out.sum(), 2))
+    valid = rng.uniform(0, 1, n) < 0.9
+    return X.astype(np.float32), uv.astype(np.float32), valid, r, t
+
+
+@pytest.mark.parametrize("prior", [False, True])
+def test_ransac_p3p_with_jax_samples(prior):
+    rng = np.random.default_rng(7)
+    X, uv, valid, r, t = _pnp_scene(rng)
+    key = jax.random.PRNGKey(5)
+    kw = dict(n_hypotheses=32, threshold=3.0, refine_iters=6, min_inliers=10,
+              solver="p3p")
+    pr = dict(prior_rvec=np.float32(r + 0.05), prior_tvec=np.float32(t))
+    res_j = jax.jit(lambda *a: jax_ransac_pnp(*a, **kw, **(
+        {k: jnp.asarray(v) for k, v in pr.items()} if prior else {})))(
+            key, jnp.asarray(TEST_K), jnp.asarray(X), jnp.asarray(uv),
+            jnp.asarray(valid))
+    samples = jax_sample_masked(key, jnp.asarray(valid), 32, 3)
+    res_t = ransac_pnp(None, to_t(TEST_K), to_t(X), to_t(uv), to_t(valid),
+                       **kw, samples=to_t(np.asarray(samples)),
+                       **({k: to_t(v) for k, v in pr.items()} if prior
+                          else {}))
+    assert bool(res_t.ok) and bool(res_j.ok)
+    np.testing.assert_array_equal(to_np(res_t.inliers),
+                                  np.asarray(res_j.inliers))
+    assert int(res_t.n_inliers) == int(res_j.n_inliers)
+    np.testing.assert_allclose(to_np(res_t.rvec), np.asarray(res_j.rvec),
+                               atol=1e-4)
+    np.testing.assert_allclose(to_np(res_t.tvec), np.asarray(res_j.tvec),
+                               atol=1e-4)
+    np.testing.assert_allclose(to_np(res_t.rvec), r, atol=0.01)
+
+
+def test_ransac_rejects_unknown_solver():
+    with pytest.raises(ValueError, match="p3p"):
+        ransac_pnp(None, to_t(TEST_K), torch.zeros(8, 3), torch.zeros(8, 2),
+                   torch.ones(8, dtype=torch.bool), solver="epnp")

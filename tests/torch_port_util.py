@@ -121,3 +121,34 @@ def ba_scene(rng, n_cams: int, n_pts: int, max_obs: int, noise_px=0.0,
                 tv=(tv + rng.normal(0, 0.02, tv.shape)).astype(f),
                 X=(X + rng.normal(0, 0.05, X.shape)).astype(f))
     return truth, init, obs
+
+
+# tests/test_engine.py's TEST_CFG, as keyword arguments for either package
+TEST_CFG_KW = dict(
+    max_keypoints=192, max_keyframes=8, max_landmarks=1024,
+    image_height=240, image_width=320, pyramid_levels=3,
+    ransac_hypotheses=64, pnp_hypotheses=32, ba_iterations=6,
+    keyframe_min_tracked=15, keyframe_time_lag=6, min_init_matches=25)
+# the float metrics (poses, reprojection error, guidance): compared to a
+# tolerance; every other field exactly
+FLOAT_METRICS = ("mean_reproj_err", "rvec", "tvec", "guid_centroid",
+                 "guid_bbox_center", "guid_bbox_axes", "guid_bbox_extent")
+
+
+def assert_metrics_match(m_t: dict, m_j, rtol=1e-4, atol=1e-4):
+    """A port metric dict against a JAX StepMetrics: the same keys in the
+    same order, the same dtypes and shapes, counters and flags equal,
+    float fields to the tolerance (the guidance box axes each up to sign:
+    an eigendecomposition fixes them no further)."""
+    assert list(m_t) == list(m_j._fields)
+    for k in m_j._fields:
+        a, b = to_np(m_t[k]), np.asarray(getattr(m_j, k))
+        assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype,
+                                                           b.dtype)
+        if k == "guid_bbox_axes":
+            a = a * np.where(np.sum(a * b, -1) < 0, -1.0, 1.0)[:, None]
+        if k in FLOAT_METRICS:
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=k)
