@@ -6,30 +6,37 @@
    name and power limit;
 2. builds the CUDA kernels from sfm_tpu_torch/csrc (one nvcc per source,
    all in parallel, sm_90a);
-3. holds each kernel against its plain PyTorch version at the main path's
-   shapes and times both with CUDA events: K1 exact (relocalization's
-   windowless 8192x512 match included), K5 within 1e-3, and the BA kernels
-   K2 (linearizer) and K3 (Schur apply: full, gather and scatter modes)
-   within 1e-4 of the largest entry, at the flagship's mapping-BA shape
-   (dead rows included) and at benchmarks/bench_ba.py's 1000-camera
-   problem;
-4. drives the main path: SfMEngine.add_frames on the synthetic 80-frame
+3. drives the main path: SfMEngine.add_frames on the synthetic 80-frame
    480x640 strafe scan (the JAX package's bench.py workload) under the
    FLAGSHIP configuration (the large implicit-Schur BA solver), on the card,
    and checks tracking, keyframes, trajectory accuracy (sim(3) keyframe ATE
    against the ground-truth poses), finite landmarks, and that K1, K5, K2,
-   K3 and K3-gather were launched by the run;
-5. the same scan under SLICE (the dense BA solver), with its own checks;
-6. the large solver's second entry point, run_large_ba, at bench_ba.py's
+   K3 and K3-gather were launched by the run (K1's launches also by call
+   site);
+4. the same scan under SLICE (the dense BA solver), with its own checks;
+5. the large solver's second entry point, run_large_ba, at bench_ba.py's
    operating point (1000 cameras, 100k landmarks, 8 LM x 25 CG
    iterations): ms per LM iteration, and the cost must decrease;
-7. "live": FLAGSHIP on RGB frames through per-frame SfMEngine.add_frame
+6. "live": FLAGSHIP on RGB frames through per-frame SfMEngine.add_frame
    (scan guidance in the step): 40 strafe frames, max_lost_frames + 2
    blank frames, 20 more; the engine must go LOST, relocalize through K1
    and P3P within 3 frames, and meet the ATE, guidance and colour checks;
-8. "flow": FLAGSHIP with track_with_flow on 30 frames, and lk_flow timed;
-9. "cli": ``cli.main(["scan", ...])`` on the card with metrics, checkpoint
+7. "flow": FLAGSHIP with track_with_flow on 30 frames, and lk_flow timed;
+8. "cli": ``cli.main(["scan", ...])`` on the card with metrics, checkpoint
    and overlay video, then a --resume run, then the PLY files read back;
+9. holds each kernel against its plain PyTorch version at the main path's
+   shapes and times both, in device time (torch.profiler) and with CUDA
+   events, beside the kernel's bound (bytes over the memory rate or
+   operations over the core rate, from this run's inputs): K1 exact
+   (relocalization's windowless 8192x512 match included), K5 within 1e-3
+   (with F.grid_sample at the same sample positions as the library
+   yardstick), and the BA kernels K2 (linearizer) and K3 (Schur apply:
+   full, gather and scatter modes) within 1e-4 of the largest entry and
+   bit-identical on a rerun, at the flagship's mapping-BA shape (dead rows
+   included), at benchmarks/bench_ba.py's 1000-camera problem and, for
+   equality only, at its layout with 4096 cameras; then run_large_ba once
+   more under the profiler.  This comes last because a profiler session
+   leaves the host slower for the host-bound phases after it;
 10. prints a JSON line with the phases' numbers, a JSON line with the
    kernels' numbers, then the card line, then {"ok": true, "device":
    {...}} as the last line.
@@ -63,9 +70,26 @@ MAIN_PATH = ("hamming_match", "patch_sampler", "ba_linearize", "schur_apply",
 # entry of the plain output.  The kernels contract multiply-adds (FMA)
 # where the plain torch ops round each step; a residual of a few pixels at
 # coordinates of hundreds keeps ~5 digits in f32, and the Huber weight and
-# g follow it.  Sums run in another order (shared-memory atomics in the
-# kernels, atomics in the plain index_add_).
+# g follow it.  Sums run in another order (shuffle trees and a fixed
+# per-camera order in the kernels, atomics in the plain index_add_).
 BA_REL_TOL = 1e-4
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
+# memory bytes per second, and f32 operations per second outside the
+# tensor cores.  Every kernel's operations, integer ones included, are held
+# to the latter, so a bound set by operations is a floor.
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
+# device microseconds per call of the BA kernels' earlier design (a
+# per-block shared-memory camera accumulator summed by a second launch;
+# torch.profiler, NVIDIA H100 80GB HBM3, 700.00 W, as PERF.md records
+# them), by kernel and shape
+EARLIER_US = {("ba_linearize", "flagship"): 22.01,
+          ("ba_linearize", "bench_ba"): 480.39,
+          ("schur_apply", "flagship"): 8.11, ("schur_apply", "bench_ba"): 112.13,
+          ("schur_gather", "flagship"): 2.72,
+          ("schur_gather", "bench_ba"): 63.34,
+          ("schur_scatter", "flagship"): 6.80,
+          ("schur_scatter", "bench_ba"): 52.67}
 K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], np.float32)
 N_FRAMES = 80
 RELOC_K1 = "8192x512 windowless"
@@ -123,6 +147,114 @@ def in_turns(torch, plain, kernel):
     k2 = cuda_ms(torch, kernel)
     p2 = cuda_ms(torch, plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _short(key):
+    """A profiler event's kernel name without return type, namespaces and
+    arguments."""
+    k = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    k = k.split("(")[0].strip()
+    depth, start = 0, 0
+    for i, ch in enumerate(k):
+        depth += (ch == "<") - (ch == ">")
+        if ch == ":" and depth == 0:
+            start = i + 1
+    return k[start:][:48]
+
+
+def device_ms(torch, fn, reps=20, by_kernel=None, attempts=5):
+    """Device milliseconds per call of ``fn``: the self device time of
+    every device op torch.profiler records over ``reps`` calls, summed (all
+    the kernels and copies a wrapper launches).  A session now and then
+    records no device event at all; it is repeated, up to ``attempts``
+    sessions, and None returned when none recorded any.  ``by_kernel``, a
+    dict, receives the same per kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None) \
+                or getattr(e, "self_cuda_time_total", 0)
+            if t > 0:
+                name = _short(e.key)
+                times[name] = times.get(name, 0.0) + t / reps / 1e3
+        if times:
+            if by_kernel is not None:
+                by_kernel.update(times)
+            return sum(times.values())
+    return None
+
+
+def timed(torch, plain, kernel, reps=20, plain_reps=5):
+    """The kernel's and the plain version's device ms per call
+    (torch.profiler; None where it recorded nothing) and their CUDA-event
+    ms per call including the Python wrapper, in turns."""
+    ev, plain_ev = in_turns(torch, plain, kernel)
+    parts = {}
+    ms = device_ms(torch, kernel, reps, parts)
+    plain_ms = device_ms(torch, plain, plain_reps)
+    return dict(ms=ms, plain_ms=plain_ms, event_ms=ev, plain_event_ms=plain_ev,
+                parts_ms=parts)
+
+
+def us(ms):
+    """Microseconds for a log line, from ms that may be None."""
+    return "not recorded" if ms is None else f"{1e3 * ms:.2f} us"
+
+
+def share(bound_ms, ms):
+    return "" if ms is None else f", {bound_ms / ms:.1%} of it"
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the core rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops), bytes=nbytes, ops=ops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def k1_bound(torch, args):
+    """K1's bound on these inputs: each input read and each output written
+    once; ~6 operations per pair for the window test and 48 (16 words of
+    XOR, popcount, add) per feasible pair, the only ones it matches."""
+    desc_s, ctr_s, valid_s, desc_t, xy_t, valid_t, min_r2, max_r2 = args[:8]
+    B, Ns = valid_s.shape
+    Nt = valid_t.shape[1]
+    d2 = ((ctr_s[:, :, None, :] - xy_t[:, None, :, :]) ** 2).sum(-1)
+    feasible = int((valid_s[:, :, None] & valid_t[:, None, :] & (d2 >= min_r2)
+                    & (d2 <= max_r2)).sum())
+    out = B * Ns * 12 + B * Nt * 8     # idx, best, second; keys
+    return bound(nbytes(*args[:6]) + out, 6 * B * Ns * Nt + 48 * feasible)
+
+
+def k5_bound(torch, canvas_s, cx, cy, out):
+    """K5's bound on these inputs: the canvas pixels its windows cover
+    (the union of the 34 x 34 windows at (cx, cy), inside the canvas: the
+    only pixels it reads), cx and cy read once, the patches written once;
+    9 operations (6 multiplies, 3 adds) per patch value."""
+    from sfm_tpu_torch.features.patches_pallas import PATCH, PATCH_RADIUS
+    Hc, Wc = canvas_s.shape
+    rr = torch.arange(PATCH + 1, device=cx.device)
+    xs = torch.floor(cx).long()[:, None] - PATCH_RADIUS + rr
+    ys = torch.floor(cy).long()[:, None] - PATCH_RADIUS + rr
+    inside = (((ys >= 0) & (ys < Hc))[:, :, None]
+              & ((xs >= 0) & (xs < Wc))[:, None, :])
+    covered = torch.zeros(Hc * Wc, dtype=torch.bool, device=cx.device)
+    covered[(ys[:, :, None] * Wc + xs[:, None, :])[inside]] = True
+    window = int(covered.sum()) * canvas_s.element_size()
+    return dict(bound(window + nbytes(cx, cy, out), 9 * out.numel()),
+                window_bytes=window)
 
 
 def match_case(torch, g, B, Ns, Nt, centers, dev):
@@ -197,12 +329,17 @@ def check_kernels(torch, dev):
         if n_match == 0:
             raise AssertionError(f"K1 {label}: no matches in the test case")
         err = float((a[1] - b[1]).abs().max())
-        ms, plain_ms = in_turns(torch, lambda: mp.hamming_match_plain(*args),
-                                lambda: mp.hamming_match_kernel(*args))
-        k1.append(dict(shape=label, ms=ms, plain_ms=plain_ms,
-                       max_abs_err=err, matches=n_match))
-        log(f"K1 {label}: exact, {n_match} matches, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+        t = timed(torch, lambda: mp.hamming_match_plain(*args),
+                  lambda: mp.hamming_match_kernel(*args))
+        bd = k1_bound(torch, args)
+        k1.append(dict(shape=label, max_abs_err=err, matches=n_match,
+                       library_ms=None, **t, **bd))
+        log(f"K1 {label}: exact, {n_match} matches, kernel {us(t['ms'])} "
+            f"device ({t['event_ms']:.4f} ms events), plain "
+            f"{us(t['plain_ms'])} device ({t['plain_event_ms']:.4f} ms); "
+            f"bound {us(bd['bound_ms'])} ({bd['bound_by']}: "
+            f"{bd['bytes']} B, {bd['ops']:.3e} ops)"
+            f"{share(bd['bound_ms'], t['ms'])}")
     # the kernels line keeps the batched mapping shape; every shape is in
     # per_shape
     rows["hamming_match"] = dict(
@@ -221,14 +358,37 @@ def check_kernels(torch, dev):
     err = float((a - b).abs().max())
     if not err <= 1e-3:
         raise AssertionError(f"K5: max abs error {err} > 1e-3")
-    ms, plain_ms = in_turns(torch,
-                            lambda: pp.extract_patches_plain(canvas_s, cx, cy),
-                            lambda: pp.extract_patches_kernel(canvas_s, cx, cy))
+    t = timed(torch, lambda: pp.extract_patches_plain(canvas_s, cx, cy),
+              lambda: pp.extract_patches_kernel(canvas_s, cx, cy))
+    # the library yardstick: F.grid_sample (bilinear, zero padding) at the
+    # same 33 x 33 sample positions, one call; the port never calls it
+    F = torch.nn.functional
+    Hc, Wc = canvas_s.shape
+    r = torch.arange(-pp.PATCH_RADIUS, pp.PATCH_RADIUS + 1, device=dev,
+                     dtype=torch.float32)
+    gx = (cx[:, None, None] + r[None, None, :]).expand(-1, pp.PATCH, -1)
+    gy = (cy[:, None, None] + r[None, :, None]).expand(-1, -1, pp.PATCH)
+    grid = torch.stack([2 * gx / (Wc - 1) - 1, 2 * gy / (Hc - 1) - 1], -1)
+    grid = grid.reshape(1, -1, pp.PATCH, 2).contiguous()
+    img = canvas_s[None, None]
+
+    def library():
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+    lib_err = float((library().reshape(a.shape) - b).abs().max())
+    lib_ms = device_ms(torch, library)
+    bd = k5_bound(torch, canvas_s, cx, cy, a)
     rows["patch_sampler"] = dict(shape=f"{cx.shape[0]} kp, canvas "
                                        f"{tuple(canvas_s.shape)}",
-                                 ms=ms, plain_ms=plain_ms, max_abs_err=err)
-    log(f"K5 {rows['patch_sampler']['shape']}: max abs err {err}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                                 max_abs_err=err, library_ms=lib_ms,
+                                 library_max_abs_err=lib_err, **t, **bd)
+    log(f"K5 {rows['patch_sampler']['shape']}: max abs err {err}, kernel "
+        f"{us(t['ms'])} device ({t['event_ms']:.4f} ms events), plain "
+        f"{us(t['plain_ms'])} device; F.grid_sample {us(lib_ms)} device "
+        f"(max abs diff {lib_err:.2e}); bound {us(bd['bound_ms'])} "
+        f"({bd['bound_by']}: {bd['bytes']} B of which {bd['window_bytes']} "
+        f"B of canvas windows, {bd['ops']} ops)"
+        f"{share(bd['bound_ms'], t['ms'])}")
     return rows
 
 
@@ -292,48 +452,100 @@ def _rel_err(a, b):
     return err, err / scale
 
 
+def ba_bound(name, tb, C):
+    """The bound of a BA kernel on a table: its inputs read and outputs
+    written once (f32 / int32; K3 with g and x given), and its flops on the
+    live slots (K2 ~300 per slot; K3 36 per slot and half of the full
+    mode, 18 per landmark for Vinv t)."""
+    L, kmax = tb.lm_cam.shape
+    slots, live = L * kmax, int((tb.lm_w != 0).sum())
+    if name == "ba_linearize":
+        # K, R, t, cam_free; xyz, lm_free; lm_cam, uv, w | W; V, g_lm;
+        # U, g_cam; cost
+        io = 36 + C * 52 + L * 16 + slots * 16 + slots * 72 + L * 48 \
+            + C * 168 + 4
+        return bound(io, 300 * live)
+    table = slots * (4 + 72)          # lm_cam and W
+    io = {"schur_apply": table + L * (36 + 12 + 12) + C * 48,
+          "schur_gather": table + L * (36 + 12 + 12) + C * 24,
+          "schur_scatter": table + L * 12 + C * 24}[name]
+    ops = {"schur_apply": 72 * live + 18 * L, "schur_gather": 36 * live
+           + 18 * L, "schur_scatter": 36 * live}[name]
+    return bound(io, ops)
+
+
 def check_ba_kernels(torch, dev):
     """K2 and the three K3 modes against their plain versions at the
     flagship's mapping-BA shape (32 cameras, 2048 landmark rows of which
     the first 20% are live, as after compaction on the scan's map; kmax 8,
-    Huber 2.0, free masks) and at bench_ba.py's (1000, 100k, 6)."""
+    Huber 2.0, free masks), at bench_ba.py's (1000, 100k, 6) and, for
+    equality only, at bench_ba's layout with 4096 cameras (above the camera
+    caps of the earlier shared-memory design).  Each kernel is run twice and
+    must give the same bits; each is timed with torch.profiler beside its
+    bound and the earlier design's time."""
     from sfm_tpu_torch.ba import linearize_pallas as lp
     from sfm_tpu_torch.ba import schur_pallas as sp
+    from sfm_tpu_torch.ba.large import camera_slots
     from sfm_tpu_torch.geometry.rotations import exp_so3
 
-    # (label, C, L, kmax, Huber delta, landmark mask, problem options)
+    # (label, C, L, kmax, Huber delta, landmark mask, problem options,
+    # timed)
     shapes = (("flagship C=32 L=2048 kmax=8", 32, 2048, 8, 2.0, True,
                dict(min_obs=2, noise_px=1.0, outlier_p=0.05, spread=0.2,
-                    live=0.2)),
+                    live=0.2), True),
               ("bench_ba C=1000 L=100000 kmax=6", 1000, 100_000, 6, 0.0,
-               False, {}))
+               False, {}, True),
+              ("bench_ba layout C=4096 L=100000 kmax=6", 4096, 100_000, 6,
+               0.0, False, {}, False))
     per = {k: [] for k in ("ba_linearize", "schur_apply", "schur_gather",
                            "schur_scatter")}
-    for label, C, L, kmax, huber, mask, extra in shapes:
+
+    def check(name, label, kern, plain, tb, C, timed_shape):
+        a, b = kern(), plain()
+        torch.cuda.synchronize()
+        errs = [_rel_err(u, v) for u, v in zip(a, b)]
+        err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        again = kern()
+        same = all(torch.equal(u, v) for u, v in zip(a, again))
+        if not same:
+            raise AssertionError(f"{name} {label}: two launches differ")
+        row = dict(shape=label, max_abs_err=err, max_rel_err=rel,
+                   bit_identical=same, library_ms=None,
+                   **ba_bound(name, tb, C))
+        msg = (f"{name} {label}: max abs err {err:.3e} (rel {rel:.3e}"
+               f"{'; ' + ' '.join(f'{e[1]:.1e}' for e in errs) if len(errs) > 2 else ''}"
+               f"), rerun bit-identical")
+        if timed_shape:
+            row.update(timed(torch, plain, kern))
+            prev = EARLIER_US.get((name, label.split()[0]))
+            row["earlier_design_us"] = prev
+            msg += (f"; kernel {us(row['ms'])} device (earlier design: "
+                    f"{prev} us; {row['event_ms']:.4f} ms events), plain "
+                    f"{us(row['plain_ms'])} device; bound "
+                    f"{us(row['bound_ms'])} ({row['bound_by']})"
+                    f"{share(row['bound_ms'], row['ms'])}; by kernel "
+                    + ", ".join(f"{k} {1e3 * v:.2f} us"
+                                for k, v in row["parts_ms"].items()))
+        per[name].append(row)
+        log(msg)
+
+    for label, C, L, kmax, huber, mask, extra, timed_shape in shapes:
         pr = ba_problem(torch, dev, C, L, kmax, **extra)
         tb = pr["tables"]
+        cs = camera_slots(tb.lm_cam, tb.lm_w, C)
         lm_free = pr["lm_free"].float()
         if mask:   # camera 0 is frozen already; every 7th landmark too
             lm_free[::7] = 0.0
         args = (pr["K"], exp_so3(pr["rv"]).contiguous(), pr["tv"], pr["X"],
                 lm_free, pr["cam_free"].float(), tb.lm_cam, tb.lm_uv,
                 tb.lm_w, huber)
-        out = lp.ba_linearize_kernel(*args)
-        ref = lp.ba_linearize_plain(*args)
-        torch.cuda.synchronize()
-        errs = [_rel_err(a, b) for a, b in zip(out, ref)]
-        err = max(e[0] for e in errs)
-        rel = max(e[1] for e in errs)
-        ms, plain_ms = in_turns(torch, lambda: lp.ba_linearize_plain(*args),
-                                lambda: lp.ba_linearize_kernel(*args))
-        per["ba_linearize"].append(dict(shape=label, ms=ms, plain_ms=plain_ms,
-                                        max_abs_err=err, max_rel_err=rel))
-        log(f"K2 {label} ({pr['n_obs']} obs): max abs err {err:.3e} "
-            f"(rel {rel:.3e}; W V g_lm U g_cam cost "
-            f"{' '.join(f'{e[1]:.1e}' for e in errs)}), kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+        log(f"[BA kernels] {label}: {pr['n_obs']} observations")
+        check("ba_linearize", label,
+              lambda: lp.ba_linearize_kernel(*args, slots=cs),
+              lambda: lp.ba_linearize_plain(*args), tb, C, timed_shape)
 
-        W, V, g_lm = ref[0], ref[1], ref[2]
+        W, V, g_lm = lp.ba_linearize_plain(*args)[:3]
         Vinv = lp.damped_vinv(V, 1e-3)
         x = torch.as_tensor(np.random.default_rng(1).normal(0, 1, (C, 6)),
                             dtype=torch.float32, device=dev)
@@ -341,7 +553,8 @@ def check_ba_kernels(torch, dev):
         z_ref = sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x)
         cases = (
             ("schur_apply",
-             lambda: sp.schur_kernel("full", lm_cam, W, Vinv, g_lm, x),
+             lambda: sp.schur_kernel("full", lm_cam, W, Vinv, g_lm, x,
+                                     slots=cs),
              lambda: sp.schur_apply_fused_plain(lm_cam, W, Vinv, g_lm, x,
                                                 C)),
             ("schur_gather",
@@ -349,26 +562,19 @@ def check_ba_kernels(torch, dev):
              lambda: (sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x),)),
             ("schur_scatter",
              lambda: (sp.schur_kernel("scatter", lm_cam, W, z=z_ref,
-                                      n_cams=C),),
+                                      n_cams=C, slots=cs),),
              lambda: (sp.schur_scatter_plain(lm_cam, W, z_ref, C),)))
         for name, kern, plain in cases:
-            a, b = kern(), plain()
-            torch.cuda.synchronize()
-            errs = [_rel_err(u, v) for u, v in zip(a, b)]
-            err = max(e[0] for e in errs)
-            rel = max(e[1] for e in errs)
-            ms, plain_ms = in_turns(torch, plain, kern)
-            per[name].append(dict(shape=label, ms=ms, plain_ms=plain_ms,
-                                  max_abs_err=err, max_rel_err=rel))
-            log(f"K3 {name} {label}: max abs err {err:.3e} (rel {rel:.3e}), "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            check(name, label, kern, plain, tb, C, timed_shape)
     # the kernels line carries the main path's (flagship) shape
     return {k: dict(v[0], per_shape=v) for k, v in per.items()}
 
 
 def run_bench_ba(torch, dev, iterations=8, cg_iterations=25):
     """run_large_ba at bench_ba.py's operating point, timed on the second
-    of two runs (host clock around a synchronised run)."""
+    of two runs (host clock around a synchronised run).  Returns the
+    numbers and the function that runs it (``bench_ba_device`` profiles
+    it at the end)."""
     from sfm_tpu_torch import native
     from sfm_tpu_torch.ba.large import run_large_ba
     pr = ba_problem(torch, dev, 1000, 100_000, 6)
@@ -403,13 +609,53 @@ def run_bench_ba(torch, dev, iterations=8, cg_iterations=25):
     if failed:
         raise AssertionError(f"run_large_ba checks failed: {failed}")
     return dict(ms_per_lm_iter=ms_iter, initial_cost=c0, final_cost=c1,
-                accepted=int(st.accepted), launches=launches)
+                accepted=int(st.accepted), launches=launches), once
+
+
+def bench_ba_device(torch, once, iterations=8):
+    """One more run_large_ba under torch.profiler: its device ms per LM
+    iteration, and that of the K2 / K3 phases by kernel."""
+    parts = {}
+    dev_iter = (device_ms(torch, once, 1, parts) or float("nan")) / iterations
+    ba = {k: v / iterations for k, v in parts.items()
+          if k.startswith(("landmark_phase", "camera_phase"))}
+    log(f"run_large_ba under torch.profiler: device {dev_iter:.3f} ms per LM "
+        f"iteration, of which the K2 / K3 phases {sum(ba.values()):.3f} ms ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in ba.items()) + ")")
+    return dict(device_ms_per_lm_iter=dev_iter, ba_kernels_ms_per_lm_iter=ba)
+
+
+def count_k1_sites(native):
+    """Wrap the matcher entry of each engine module so that K1's launches
+    are also counted by calling function ("module.function"); returns the
+    counts and a function that undoes the wrapping.  The wrapper counts
+    what the kernel's own counter adds, nothing else."""
+    import importlib
+    sites, undo = {}, []
+    for stem in ("bootstrap", "tracking", "mapping", "reloc"):
+        mod = importlib.import_module(f"sfm_tpu_torch.engine.{stem}")
+        real = mod.match_features_pallas
+
+        def wrapped(*a, _real=real, _stem=stem, **kw):
+            site = f"{_stem}.{sys._getframe(1).f_code.co_name}"
+            n0 = native.LAUNCHES["hamming_match"]
+            out = _real(*a, **kw)
+            sites[site] = sites.get(site, 0) \
+                + native.LAUNCHES["hamming_match"] - n0
+            return out
+        mod.match_features_pallas = wrapped
+        undo.append((mod, real))
+
+    def restore():
+        for mod, real in undo:
+            mod.match_features_pallas = real
+    return sites, restore
 
 
 def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
     """add_frames over the bench.py scan in chunks of keyframe_time_lag
     frames, then the checks; every counter in ``kernels`` must have been
-    launched by the scan."""
+    launched by the scan.  K1's launches are also counted per call site."""
     from sfm_tpu_torch import native
     from sfm_tpu_torch.engine import SfMEngine, run_pending_mapping
     from sfm_tpu_torch.engine.state import scalar
@@ -431,17 +677,21 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
               for i in range(0, n_frames, chunk)]
     sync()
 
-    native.reset_launch_counts()
-    t0 = time.perf_counter()
-    metrics = eng.add_frames(staged[0])
-    sync()
-    first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for ch in staged[1:]:
-        metrics += eng.add_frames(ch)
-    sync()
-    steady_s = time.perf_counter() - t0
-    launches = dict(native.LAUNCHES)
+    k1_sites, restore = count_k1_sites(native)
+    try:
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = eng.add_frames(staged[0])
+        sync()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for ch in staged[1:]:
+            metrics += eng.add_frames(ch)
+        sync()
+        steady_s = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+    finally:
+        restore()
 
     status = np.array([int(m["status"]) for m in metrics])
     boot = int(np.argmax(status == 1)) if (status == 1).any() else None
@@ -459,7 +709,8 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
         f"frames RUNNING; {n_kf} keyframes {fns.tolist()}; {len(pts)} "
         f"landmarks; ATE {ate:.5f} over extent {extent:.3f} "
         f"({100 * ate / extent:.3f}%); ba_dropped_obs {dropped} (the last "
-        f"mapping pass); launches {launches}")
+        f"mapping pass); launches {launches}; K1 launches by call site "
+        f"{k1_sites}")
     log(f"[{label}] first chunk {first_s:.3f} s; amortised {fps:.3f} "
         f"frames/s over frames {chunk}-{n_frames - 1} (tracking + deferred "
         f"mapping)")
@@ -495,7 +746,8 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
     failed = [n for n, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{label} checks failed: {failed}")
-    return dict(launches=launches, fps=fps, map_ms=float(np.mean(map_ms)),
+    return dict(launches=launches, k1_sites=k1_sites, fps=fps,
+                map_ms=float(np.mean(map_ms)),
                 ate_pct=100 * ate / extent, keyframes=n_kf,
                 running=running, bootstrap_frame=boot,
                 ba_dropped_obs=dropped)
@@ -741,31 +993,46 @@ def main():
     log(f"kernel build: {native.BUILD_INFO['seconds']:.2f} s "
         f"({native.BUILD_INFO['path']})")
     log(native.BUILD_INFO.get("ptxas", ""))
-    rows = check_kernels(torch, dev)
-    rows.update(check_ba_kernels(torch, dev))
     from sfm_tpu_torch.config import FLAGSHIP, SLICE, SfMConfig
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
                          MAIN_PATH)
     dense = run_slice(torch, dev, SfMConfig(**SLICE), "dense",
                       ("hamming_match", "patch_sampler"))
-    bench = run_bench_ba(torch, dev)
+    bench, bench_once = run_bench_ba(torch, dev)
     live = run_live(torch, dev, SfMConfig(**FLAGSHIP), MAIN_PATH)
     flow_cfg = SfMConfig(**FLAGSHIP, track_with_flow=True)
     flow = run_slice(torch, dev, flow_cfg, "flow", MAIN_PATH, n_frames=30)
     flow["lk_flow_ms"] = time_flow(torch, dev, flow_cfg)
     cli = run_cli(torch, dev)
+    # the kernels against their plain versions, with the timings under
+    # torch.profiler last: a profiler session leaves the host slower for
+    # the host-bound phases after it
+    rows = check_kernels(torch, dev)
+    rows.update(check_ba_kernels(torch, dev))
+    bench.update(bench_ba_device(torch, bench_once))
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces,
-                            launches=flagship["launches"][name],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], shape=r["shape"]))
+        measured = ("ms", "plain_ms") + (
+            ("library_ms",) if name == "patch_sampler" else ())
+        unrecorded = [k for k in measured if r[k] is None]
+        if unrecorded:
+            raise AssertionError(f"{name}: torch.profiler recorded no device "
+                                 f"time for {unrecorded}")
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=flagship["launches"][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"],
+            event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"]))
     print(json.dumps({
         "flagship": {k: v for k, v in flagship.items() if k != "launches"},
         "dense": {k: v for k, v in dense.items() if k != "launches"},
         "dense_launches": dense["launches"], "run_large_ba": bench,
+        "k1_bounds": {r["shape"]: dict(bound_ms=r["bound_ms"],
+                                       bound_by=r["bound_by"])
+                      for r in rows["hamming_match"]["per_shape"]},
         "live": live, "flow": {k: v for k, v in flow.items()
                                if k != "launches"}, "cli": cli,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()

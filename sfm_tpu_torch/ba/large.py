@@ -12,8 +12,10 @@ This is the JAX package's fused route (``run_large_ba`` with
 SchurPlan windows, tile packing, one-hot contractions or bf16 operands.
 
 The camera-major half of the dual tables is built by ``build_tables`` and
-``build_tables_device`` for parity with the JAX package, but the solver
-reads only the landmark-major half."""
+``build_tables_device`` for parity with the JAX package.  The solver reads
+the landmark-major half, plus ``camera_slots``: a camera-major index of its
+live slots, built once per solve, through which the kernels sum per
+camera."""
 
 from __future__ import annotations
 
@@ -138,6 +140,31 @@ def build_lm_tables_device(obs: Observations, n_lms: int, kmax: int):
             (live.sum() - keep.sum()).to(torch.int32))
 
 
+class CameraSlots(NamedTuple):
+    """The camera-major CSR of a landmark-major table's live slots
+    s = l * kmax + k (w != 0; every slot when no weights are given).
+    Camera c owns
+    ``slots[offsets[c]:offsets[c + 1]]``, in ascending s; the empty slots
+    follow ``offsets[C]`` (so ``slots`` has a fixed size: no host read)."""
+    offsets: torch.Tensor  # [C + 1] int32
+    slots: torch.Tensor    # [L * kmax] int32
+
+
+def camera_slots(lm_cam: torch.Tensor, lm_w: Optional[torch.Tensor],
+                 n_cams: int) -> CameraSlots:
+    """``CameraSlots`` of the table lm_cam [L, kmax] (camera indices
+    clamped into range, as the kernels read them) with weights lm_w
+    [L, kmax] (None: every slot is live), on the table's device: a stable
+    sort by camera, no host read."""
+    key = lm_cam.reshape(-1).to(torch.int64).clamp(0, n_cams - 1)
+    if lm_w is not None:
+        key = torch.where(lm_w.reshape(-1) != 0, key, n_cams)
+    sorted_key, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        sorted_key, torch.arange(n_cams + 1, device=key.device))
+    return CameraSlots(offsets.to(torch.int32), order.to(torch.int32))
+
+
 def _pcg(matvec, M_inv, rhs, iterations: int):
     """Block-Jacobi PCG with a fixed trip count and no host read; x0 = 0,
     so r0 = rhs."""
@@ -171,8 +198,9 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
     """Implicit-Schur LM: an outer damping loop, an inner block-Jacobi PCG
     on the reduced camera system.  cam_free [C] / lm_free [L] bool masks
     freeze parameters.  One linearisation (K2) per LM iteration, at the
-    trial point; CG, the rhs and back-substitution go through K3.  One
-    host read per iteration (accept flag and early exit together)."""
+    trial point; CG, the rhs and back-substitution go through K3; both
+    kernels share one ``camera_slots`` index per call.  One host read per
+    iteration (accept flag and early exit together)."""
     if precond == "schur_diag":
         raise NotImplementedError(
             "precond='schur_diag' is not ported (ROADMAP.md, kept out on "
@@ -187,12 +215,13 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
     lm_w = tables.lm_w.contiguous()
     K = K.contiguous()
     eye6 = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
+    cslots = camera_slots(lm_cam, lm_w, C)
 
     def linearize(rvec, tvec, xyz):
         *blocks, cost = ba_linearize(
             K, exp_so3(rvec).contiguous(), tvec.contiguous(),
             xyz.contiguous(), lm_free_f, cam_free_f, lm_cam, lm_uv, lm_w,
-            huber_delta)
+            huber_delta, slots=cslots)
         return blocks, cost
 
     blocks, cost = linearize(rvec, tvec, xyz)
@@ -201,7 +230,7 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
     for _ in range(iterations):
         W, V, g_lm, U, g_cam = blocks
         Ud = _damp(U, lam)
-        op = SchurOperator(W, lm_cam, damped_vinv(V, lam))
+        op = SchurOperator(W, lm_cam, damped_vinv(V, lam), cslots)
 
         def matvec(x):
             return (Ud @ x[:, :, None])[..., 0] - op.w_vinv_wt_x(x)

@@ -3,8 +3,10 @@
 
 The CUDA kernel replaces the Pallas TPU kernel
 ``sfm_tpu/ba/linearize_pallas.py::_linearize_kernel`` (wrapped there by
-``fused_blocks``).  One pass over the landmark-major table [L, kmax]
-returns what an LM iteration of the large solver needs:
+``fused_blocks``).  One call over the landmark-major table [L, kmax] (a
+landmark pass, then a camera pass through the table's camera-major index,
+``large.camera_slots``) returns what an LM iteration of the large solver
+needs:
 
     W [L, kmax, 6, 3]   A^T B per slot (the layout K3 reads)
     V [L, 3, 3], g_lm [L, 3]
@@ -28,14 +30,6 @@ import torch
 
 from .. import native
 from .residuals import Observations, huber_weights, residuals_and_jacobians
-
-# the [C, 28] camera accumulator: U's upper triangle (p <= q) in this order,
-# then g_cam (21..26) and the cost (27)
-_SYM6 = [(p, q) for p in range(6) for q in range(p, 6)]
-_U_FROM_SYM = [_SYM6.index((min(p, q), max(p, q)))
-               for p in range(6) for q in range(6)]
-_ACC = 28   # camera accumulator row
-_LM = 9     # per-slot landmark staging (V upper triangle | g_lm)
 
 
 def ba_linearize_plain(K, R, tvec, xyz, lm_free_f, cam_free_f, lm_cam, lm_uv,
@@ -65,20 +59,18 @@ def ba_linearize_plain(K, R, tvec, xyz, lm_free_f, cam_free_f, lm_cam, lm_uv,
 
 
 def ba_linearize_kernel(K, R, tvec, xyz, lm_free_f, cam_free_f, lm_cam,
-                        lm_uv, lm_w, huber_delta: float = 0.0):
-    """The CUDA kernel (same contract as ``ba_linearize_plain``).  Raises
-    when the block's [C, 28] camera accumulator and slot staging outrun
-    its shared memory (C > ~2000), or for kmax > 256."""
+                        lm_uv, lm_w, huber_delta: float = 0.0, slots=None):
+    """The CUDA kernel (same contract as ``ba_linearize_plain``), for any
+    camera count and kmax <= 256.  ``slots``: the table's
+    ``large.camera_slots``, built here when not given."""
     C = R.shape[0]
     L, kmax = lm_cam.shape
     if C < 1:
         raise ValueError(f"ba_linearize: empty problem C={C}")
-    lpb, threads = native.slot_block(kmax)
-    smem = (C * _ACC + threads * _LM) * 4
-    if smem > native.MAX_SHARED_BYTES:
-        raise ValueError(f"ba_linearize: {C} cameras need {smem} B of "
-                         f"shared memory per block, more than "
-                         f"{native.MAX_SHARED_BYTES}")
+    native.check_kmax(kmax)
+    if slots is None:
+        from .large import camera_slots
+        slots = camera_slots(lm_cam, lm_w, C)
     for name, t, dt, shape in (
             ("K", K, torch.float32, (3, 3)),
             ("R", R, torch.float32, (C, 3, 3)),
@@ -88,39 +80,41 @@ def ba_linearize_kernel(K, R, tvec, xyz, lm_free_f, cam_free_f, lm_cam,
             ("cam_free_f", cam_free_f, torch.float32, (C,)),
             ("lm_cam", lm_cam, torch.int32, (L, kmax)),
             ("lm_uv", lm_uv, torch.float32, (L, kmax, 2)),
-            ("lm_w", lm_w, torch.float32, (L, kmax))):
+            ("lm_w", lm_w, torch.float32, (L, kmax)),
+            ("offsets", slots.offsets, torch.int32, (C + 1,)),
+            ("slots", slots.slots, torch.int32, (L * kmax,))):
         native.require_cuda(name, t, dt, shape)
         if t.device != xyz.device:
             raise ValueError(f"{name} is on {t.device}, xyz on {xyz.device}")
+    if lm_uv.data_ptr() % 8:
+        raise ValueError("lm_uv: the kernel reads (u, v) as 8-byte pairs")
     dev = xyz.device
-    cam = torch.cat([R.reshape(C, 9), tvec, cam_free_f[:, None]], 1)
-    nblocks = native.grid_blocks(dev, L, lpb)
-    W = torch.empty((L, kmax, 6, 3), dtype=torch.float32, device=dev)
-    V = torch.empty((L, 3, 3), dtype=torch.float32, device=dev)
-    g_lm = torch.empty((L, 3), dtype=torch.float32, device=dev)
-    partial = torch.empty((nblocks, C, _ACC), dtype=torch.float32,
-                          device=dev)
-    camacc = torch.empty((C, _ACC), dtype=torch.float32, device=dev)
-    lib = native.library()
-    rc = lib.sfm_ba_linearize(
-        K.data_ptr(), cam.data_ptr(), xyz.data_ptr(), lm_free_f.data_ptr(),
-        lm_cam.data_ptr(), lm_uv.data_ptr(), lm_w.data_ptr(), L, kmax, C,
-        float(huber_delta), nblocks, W.data_ptr(), V.data_ptr(),
-        g_lm.data_ptr(), partial.data_ptr(), camacc.data_ptr(),
-        native.stream_handle(dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    W = torch.empty((L, kmax, 6, 3), **f32)
+    V = torch.empty((L, 3, 3), **f32)
+    g_lm = torch.empty((L, 3), **f32)
+    U = torch.empty((C, 6, 6), **f32)
+    g_cam = torch.empty((C, 6), **f32)
+    cost = torch.empty((C,), **f32)     # per camera
+    rc = native.library().sfm_ba_linearize(
+        K.data_ptr(), R.data_ptr(), tvec.data_ptr(), cam_free_f.data_ptr(),
+        xyz.data_ptr(), lm_free_f.data_ptr(), lm_cam.data_ptr(),
+        lm_uv.data_ptr(), lm_w.data_ptr(), slots.offsets.data_ptr(),
+        slots.slots.data_ptr(), L, kmax, C, float(huber_delta), W.data_ptr(),
+        V.data_ptr(), g_lm.data_ptr(), U.data_ptr(), g_cam.data_ptr(),
+        cost.data_ptr(), native.stream_handle(dev))
     native.check(rc, "ba_linearize")
     native.LAUNCHES["ba_linearize"] += 1
-    U = camacc[:, _U_FROM_SYM].reshape(C, 6, 6)
-    return W, V, g_lm, U, camacc[:, 21:27], camacc[:, 27].sum()
+    return W, V, g_lm, U, g_cam, cost.sum()
 
 
 def ba_linearize(K, R, tvec, xyz, lm_free_f, cam_free_f, lm_cam, lm_uv, lm_w,
-                 huber_delta: float = 0.0):
+                 huber_delta: float = 0.0, slots=None):
     """K2 dispatch: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor."""
+    CPU tensor (which does not read ``slots``)."""
     if xyz.is_cuda:
         return ba_linearize_kernel(K, R, tvec, xyz, lm_free_f, cam_free_f,
-                                   lm_cam, lm_uv, lm_w, huber_delta)
+                                   lm_cam, lm_uv, lm_w, huber_delta, slots)
     if xyz.device.type != "cpu":
         raise ValueError(f"ba_linearize: unsupported device {xyz.device}")
     return ba_linearize_plain(K, R, tvec, xyz, lm_free_f, cam_free_f, lm_cam,

@@ -27,15 +27,6 @@ import time
 import numpy as np
 
 
-def _device(name: str):
-    import torch
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available "
-                           "(pass --device cpu to run on the CPU)")
-    return dev
-
-
 def _json_line(m: dict) -> str:
     return json.dumps({k: (v.tolist() if hasattr(v, "tolist") else v)
                        for k, v in m.items()}) + "\n"
@@ -45,10 +36,11 @@ def cmd_scan(args) -> int:
     import torch
     from .config import SfMConfig
     from .engine import SfMEngine
+    from .engine.state import resolve_device
     from .guidance import init_guidance, update_guidance
     from .io import PointCloud, load_state, open_source, save_state
 
-    dev = _device(args.device)
+    dev = resolve_device(args.device)
     src = open_source(args.input)
     first = next(iter(src))
     h, w = first[0].shape
@@ -173,10 +165,11 @@ def cmd_tum(args) -> int:
     """Run a TUM RGB-D sequence (monocular) and report sim(3) ATE."""
     from .config import SfMConfig
     from .engine import SfMEngine
+    from .engine.state import resolve_device
     from .io.tum import TUM_INTRINSICS, TUMSequence, ate_sim3
     from .np_geometry import rodrigues_np
 
-    dev = _device(args.device)
+    dev = resolve_device(args.device)
     seq = TUMSequence(args.seq)
     intr = TUM_INTRINSICS[args.camera]
     first = next(seq.frames())

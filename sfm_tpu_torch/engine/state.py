@@ -59,6 +59,16 @@ class SfMState(_Tree):
                                     # always 0 with the dense solver)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device.  A CUDA device without a card raises:
+    nothing moves to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+    return dev
+
+
 def scalar(v: int, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32, device=device)
 

@@ -25,7 +25,8 @@ from .bootstrap import bootstrap_step
 from .mapping import mapping_pass
 from .reloc import reloc_step
 from .state import (NOT_INITIALIZED, RUNNING, CameraParams, SfMState,
-                    init_state, make_frame, scalar, to_gray)
+                    init_state, make_frame, resolve_device, scalar,
+                    to_gray)
 from .tracking import tracking_step
 
 _UNPORTED = (
@@ -120,11 +121,13 @@ def _fetch(ms: list) -> list:
 
 
 class SfMEngine:
-    """Host-side engine.  ``device`` picks where every tensor lives; on a
-    CUDA device the matcher and the patch sampler run as CUDA kernels."""
+    """Host-side engine.  ``device`` picks where every tensor lives: the
+    card by default, where the matcher, the patch sampler and the large
+    solver's BA kernels run as CUDA kernels; without a card the default
+    raises, and ``device="cpu"`` runs the plain versions."""
 
     def __init__(self, K, image_size, dist=None,
-                 config: Optional[SfMConfig] = None, device="cpu",
+                 config: Optional[SfMConfig] = None, device="cuda",
                  seed: int = 0):
         # full float32 matmuls and convolutions (TF32 keeps ~3 digits and
         # stalls bootstrap the way bf16 rounding did on the TPU)
@@ -136,7 +139,7 @@ class SfMEngine:
                                "image_width": image_size[1]})
         check_supported(cfg)
         self.config = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         K = np.asarray(K, np.float32)
         d = np.zeros(5, np.float32)
         if dist is not None:

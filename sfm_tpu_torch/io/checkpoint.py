@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..config import SfMConfig
-from ..engine.state import SfMState, init_state
+from ..engine.state import SfMState, init_state, resolve_device
 
 JAX_STATE_FIELDS = (
     "status", "prev", "kfs", "lms", "frame_count", "last_kf_frame_no",
@@ -67,9 +67,11 @@ def _rebuild(proto, loaded, path=()):
     return loaded[path]
 
 
-def load_state(path: str, cfg: SfMConfig, device="cpu") -> SfMState:
-    """The state a checkpoint holds, on ``device``.  Raises ValueError when
-    its leaf count or a leaf's shape differs from what ``cfg`` gives."""
+def load_state(path: str, cfg: SfMConfig, device="cuda") -> SfMState:
+    """The state a checkpoint holds, on ``device`` (the card by default;
+    raises without one).  Raises ValueError when its leaf count or a
+    leaf's shape differs from what ``cfg`` gives."""
+    device = resolve_device(device)
     proto = init_state(cfg, device)
     leaves = list(_state_leaves(proto))
     z = np.load(path)

@@ -31,10 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"hamming_match": 0, "patch_sampler": 0, "ba_linearize": 0,
             "schur_apply": 0, "schur_gather": 0, "schur_scatter": 0}
 BUILD_INFO = {}
-# the dynamic shared memory one block may use on Hopper (227 KB)
-MAX_SHARED_BYTES = 232448
 _lib = None
-_sm_counts = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,10 +41,10 @@ _SIGNATURES = {
     "sfm_hamming_match": ("match", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                     _F, _F, _F, _P, _P, _P, _P, _P]),
     "sfm_extract_patches": ("patches", [_P, _I, _I, _P, _P, _I, _P, _P]),
-    "sfm_ba_linearize": ("linearize", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _F, _I, _P, _P, _P, _P, _P, _P]),
-    "sfm_schur_apply": ("schur", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _P, _P, _P, _P]),
+    "sfm_ba_linearize": ("linearize", [_P] * 11 + [_I, _I, _I, _F]
+                         + [_P] * 7),
+    "sfm_schur_apply": ("schur", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _P, _P, _P, _P]),
 }
 
 
@@ -154,31 +151,11 @@ def stream_handle(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# the BA kernels (K2, K3) run one thread per table slot (l, k), a block
-# holding whole landmarks: max(1, 128 // kmax) of them, kmax <= 256; their
-# grids stop at 2 blocks per SM, which bounds the [nblocks, C, ...] scratch
+# the BA kernels (K2, K3) take 1..256 observation slots per landmark
 MAX_KMAX = 256
-_BLOCKS_PER_SM = 2
 
 
-def slot_block(kmax: int):
-    """(landmarks per block step, threads per block) of the BA kernels,
-    as csrc/linearize.cu and csrc/schur.cu size their launches."""
+def check_kmax(kmax: int) -> None:
     if not 1 <= kmax <= MAX_KMAX:
         raise ValueError(f"kmax={kmax}: the BA kernels take 1..{MAX_KMAX} "
                          "observation slots per landmark")
-    lpb = max(1, 128 // kmax)
-    return lpb, lpb * kmax
-
-
-def grid_blocks(device, n: int, per_block: int) -> int:
-    """Blocks for a grid-stride loop over ``n`` items: one block per
-    ``per_block`` items, at most 2 blocks per SM, at least 1."""
-    import torch
-    idx = torch.device(device).index
-    idx = torch.cuda.current_device() if idx is None else idx
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return max(1, min((n + per_block - 1) // per_block,
-                      _BLOCKS_PER_SM * _sm_counts[idx]))

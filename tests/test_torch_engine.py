@@ -235,7 +235,7 @@ def test_deferred_chunks_track():
     cfg = dataclasses.replace(CFG, track_widen_capacity=256,
                               mapping_reobs_capacity=256,
                               ba_landmark_capacity=256, ba_huber_delta=2.0)
-    eng = SfMEngine(TEST_K, (240, 320), None, cfg)
+    eng = SfMEngine(TEST_K, (240, 320), None, cfg, device="cpu")
     ms = []
     for i in range(0, 24, cfg.keyframe_time_lag):
         ms += eng.add_frames(frames[i:i + cfg.keyframe_time_lag])
@@ -256,7 +256,7 @@ def test_large_solver_scan():
     cfg = dataclasses.replace(CFG, ba_solver="large", ba_kmax=8,
                               ba_cg_iterations=12, ba_huber_delta=2.0,
                               ba_landmark_capacity=256)
-    eng = SfMEngine(TEST_K, (240, 320), None, cfg)
+    eng = SfMEngine(TEST_K, (240, 320), None, cfg, device="cpu")
     ms = []
     for i in range(0, N_FRAMES, cfg.keyframe_time_lag):
         ms += eng.add_frames(frames[i:i + cfg.keyframe_time_lag])
@@ -279,7 +279,7 @@ def test_distorted_camera_scan():
     scene = SpriteScene(np.random.default_rng(3))
     dist = [-0.25, 0.07, 0.001, -0.0005, 0.0]
     rvecs, tvecs = strafe_trajectory(24, step=0.07, yaw_rate=0.001)
-    eng = SfMEngine(TEST_K, (240, 320), dist, CFG)
+    eng = SfMEngine(TEST_K, (240, 320), dist, CFG, device="cpu")
     assert not np.allclose(to_np(eng.cam.Kopt), TEST_K)
     for i in range(24):
         m = eng.add_frame(scene.render(TEST_K, rvecs[i], tvecs[i], 240, 320,
@@ -297,11 +297,13 @@ def test_flagship_engine_and_unported_solver():
     from sfm_tpu_torch.config import FLAGSHIP
     K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
                  np.float32)
-    eng = SfMEngine(K, (480, 640), config=SfMConfig(**FLAGSHIP))
+    eng = SfMEngine(K, (480, 640), config=SfMConfig(**FLAGSHIP),
+                    device="cpu")
     assert eng.config.ba_solver == "large" and eng.status == 0
     with pytest.raises(NotImplementedError, match="ROADMAP.*run_ba_cg"):
         SfMEngine(K, (480, 640),
-                  config=SfMConfig(**dict(FLAGSHIP, ba_solver="cg")))
+                  config=SfMConfig(**dict(FLAGSHIP, ba_solver="cg")),
+                  device="cpu")
 
 
 def test_imports_without_jax():

@@ -206,7 +206,7 @@ def test_flow_scan_stays_running():
     and prev_image follows the reference frame."""
     scene = SpriteScene(np.random.default_rng(3))
     rv, tv = strafe_trajectory(14)
-    eng = SfMEngine(TEST_K, (H, W), None, CFG)
+    eng = SfMEngine(TEST_K, (H, W), None, CFG, device="cpu")
     ms = [eng.add_frame(scene.render(TEST_K, rv[i], tv[i], H, W))
           for i in range(14)]
     assert eng.status == RUNNING
@@ -216,5 +216,6 @@ def test_flow_scan_stays_running():
     assert float(eng.state.prev_image.std()) > 1.0
     # without flow the image is a [1, 1] placeholder
     off = SfMEngine(TEST_K, (H, W), None,
-                    dataclasses.replace(CFG, track_with_flow=False))
+                    dataclasses.replace(CFG, track_with_flow=False),
+                    device="cpu")
     assert tuple(off.state.prev_image.shape) == (1, 1)

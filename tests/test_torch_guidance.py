@@ -157,7 +157,7 @@ def test_step_runs_guidance_on_running_rgb_frames():
     rv, tv = strafe_trajectory(5)
     frames = [scene.render(TEST_K, rv[i], tv[i], 240, 320, rgb=True)
               for i in range(5)]
-    eng = SfMEngine(TEST_K, (240, 320), None, CFG)
+    eng = SfMEngine(TEST_K, (240, 320), None, CFG, device="cpu")
     ms = [eng.add_frame(f) for f in frames]
     assert int(ms[0]["status"]) == NOT_INITIALIZED
     assert not ms[0]["guid_bbox_center"].any()
@@ -170,7 +170,8 @@ def test_step_runs_guidance_on_running_rgb_frames():
     assert (cols[:, 0] != cols[:, 1]).any()
 
     off = SfMEngine(TEST_K, (240, 320), None,
-                    dataclasses.replace(CFG, guidance_enabled=False))
+                    dataclasses.replace(CFG, guidance_enabled=False),
+                    device="cpu")
     ms = [off.add_frame(f) for f in frames]
     assert int(ms[-1]["status"]) == RUNNING
     assert not ms[-1]["guid_bbox_center"].any()

@@ -179,7 +179,7 @@ def test_checkpoint_from_jax(tmp_path):
     tree = _random_jax_state(JaxConfig(**SMALL), np.random.default_rng(4))
     p = str(tmp_path / "j.npz")
     jck.save_state(p, tree)
-    st = load_state(p, SfMConfig(**SMALL))
+    st = load_state(p, SfMConfig(**SMALL), "cpu")
     ref = state_from_numpy(tree, "cpu")
     from sfm_tpu_torch.io.checkpoint import _leaves
     got, want = list(_leaves(st)), list(_leaves(ref))
@@ -207,16 +207,18 @@ def test_checkpoint_to_jax(tmp_path):
 def test_checkpoint_refusals(tmp_path):
     cfg = SfMConfig(**SMALL)
     p = str(tmp_path / "c.npz")
-    save_state(p, SfMEngine(np.eye(3), (48, 64), None, cfg).state)
+    save_state(p, SfMEngine(np.eye(3), (48, 64), None, cfg,
+                            device="cpu").state)
     with pytest.raises(ValueError, match="shape"):
-        load_state(p, SfMConfig(**dict(SMALL, max_keypoints=48)))
+        load_state(p, SfMConfig(**dict(SMALL, max_keypoints=48)), "cpu")
     with pytest.raises(ValueError, match="shape"):     # prev_image [1, 1]
-        load_state(p, SfMConfig(**dict(SMALL, track_with_flow=False)))
+        load_state(p, SfMConfig(**dict(SMALL, track_with_flow=False)),
+                   "cpu")
     z = dict(np.load(p))
     z["n"] = np.asarray(int(z["n"]) + 1)
     np.savez(tmp_path / "bad.npz", **z)
     with pytest.raises(ValueError, match="leaves"):
-        load_state(str(tmp_path / "bad.npz"), cfg)
+        load_state(str(tmp_path / "bad.npz"), cfg, "cpu")
 
 
 def test_overlay_matches_jax():

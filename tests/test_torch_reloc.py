@@ -122,7 +122,7 @@ def test_blank_frames_cause_lost_then_recover():
     and tracking goes on."""
     scene = SpriteScene(np.random.default_rng(3))
     rvecs, tvecs = strafe_trajectory(30)
-    eng = SfMEngine(TEST_K, (240, 320), None, CFG)
+    eng = SfMEngine(TEST_K, (240, 320), None, CFG, device="cpu")
     for i in range(10):
         eng.add_frame(scene.render(TEST_K, rvecs[i], tvecs[i], 240, 320))
     assert eng.status == RUNNING
