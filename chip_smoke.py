@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch/CUDA port (sfm_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --calls DIR   # K1 / K5 call times of DIR's package
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
@@ -27,10 +28,17 @@
 9. holds each kernel against its plain PyTorch version at the main path's
    shapes and times both, in device time (torch.profiler) and with CUDA
    events, beside the kernel's bound (bytes over the memory rate or
-   operations over the core rate, from this run's inputs): K1 exact
-   (relocalization's windowless 8192x512 match included), K5 within 1e-3
-   (with F.grid_sample at the same sample positions as the library
-   yardstick), and the BA kernels K2 (linearizer) and K3 (Schur apply:
+   operations over the core rate, from this run's inputs; the card's clock
+   raised by a busy burst before each profile): K1 bit for bit (raw
+   outputs and MatchResult) and timed as the whole match_features_pallas
+   call, three device ops, at its five shapes (relocalization's
+   windowless 8192x512 match included), with the route its rule did not
+   pick held and timed too where the window admits both; K1 again on the
+   FLAGSHIP scan's own calls, replayed by call site and route (bit for
+   bit, device time per call, bound, the other route, device time lost
+   per scan); K5 bit for bit (with F.grid_sample at the same sample
+   positions as the library yardstick), and the BA kernels K2
+   (linearizer) and K3 (Schur apply:
    full, gather and scatter modes) within 1e-4 of the largest entry and
    bit-identical on a rerun, at the flagship's mapping-BA shape (dead rows
    included), at benchmarks/bench_ba.py's 1000-camera problem and, for
@@ -40,8 +48,13 @@
 10. prints a JSON line with the phases' numbers, a JSON line with the
    kernels' numbers, then the card line, then {"ok": true, "device":
    {...}} as the last line.
+With ``--calls DIR`` it only times K1's whole call at its five shapes and
+K5's call (device time and device ops per call) for the sfm_tpu_torch
+package under DIR, and prints them as JSON and the card line: the way to
+compare two commits in one run on one card.
 Any failed check raises, and the script exits non-zero."""
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -93,6 +106,22 @@ EARLIER_US = {("ba_linearize", "flagship"): 22.01,
 K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], np.float32)
 N_FRAMES = 80
 RELOC_K1 = "8192x512 windowless"
+# (label, B, Ns, Nt, window centres, min_r, max_r): the main path's K1
+# calls — tracking, widen_tracks, mapping triangulation, re-observation —
+# and relocalization's windowless global match of every landmark slot
+# (zero source positions, radius 1e9, of which 20% are live)
+K1_CASES = (("512x512", 1, 512, 512, False, 1.5, 40.0),
+            ("2048x512 centres", 1, 2048, 512, True, 0.0, 7.0),
+            ("9x512x512", 9, 512, 512, False, 1.5, 120.0),
+            ("16x2048x512 centres", 16, 2048, 512, True, 0.0, 7.0),
+            (RELOC_K1, 1, 8192, 512, False, 0.0, 1e9))
+# device operations a match_features_pallas call may launch on the card
+# (the call is exactly this many: a profiler session that shows fewer
+# dropped events and is repeated)
+K1_MAX_OPS = 3
+# K1's match pass kernels, one per route (the other ops of a call are the
+# key table's initialisation and the epilogue)
+K1_PASSES = ("cells_kernel", "dense_kernel")
 # the live phase: strafe frames before the blanks, and after them
 LIVE_BEFORE, LIVE_AFTER = 40, 20
 
@@ -162,45 +191,91 @@ def _short(key):
     return k[start:][:48]
 
 
-def device_ms(torch, fn, reps=20, by_kernel=None, attempts=5):
+def warm_clocks(torch, ms=30.0):
+    """Keep the card busy for ~``ms`` milliseconds: an idle H100 drops its
+    SM clock to 345 MHz, and a profiled burst of small kernels does not
+    raise it again, so short kernels would be timed at a low clock."""
+    a = torch.ones((2048, 2048), device="cuda")
+    t0 = time.perf_counter()
+    while 1e3 * (time.perf_counter() - t0) < ms:
+        for _ in range(8):
+            a = a @ a * 1e-3
+        torch.cuda.synchronize()
+
+
+def device_ms(torch, fn, reps=20, by_kernel=None, attempts=5, ops=None,
+              ops_ok=float.is_integer):
     """Device milliseconds per call of ``fn``: the self device time of
     every device op torch.profiler records over ``reps`` calls, summed (all
-    the kernels and copies a wrapper launches).  A session now and then
-    records no device event at all; it is repeated, up to ``attempts``
-    sessions, and None returned when none recorded any.  ``by_kernel``, a
-    dict, receives the same per kernel name."""
+    the kernels and copies a wrapper launches), after warm_clocks.  A
+    session now and then records no device event at all, or drops some;
+    it is repeated, up to ``attempts`` sessions, and None returned when
+    none was whole.  A session is whole when it recorded a device event
+    and ``ops_ok(device ops per call)`` holds: by default a whole number
+    of ops per call (a session that dropped events rarely leaves one).
+    ``by_kernel``, a dict, receives the same per kernel name; ``ops``, a
+    dict, the device ops per call under "per_call"."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
+        warm_clocks(torch)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = {}
+        times, count = {}, 0
         for e in prof.key_averages():
             t = getattr(e, "self_device_time_total", None) \
                 or getattr(e, "self_cuda_time_total", 0)
             if t > 0:
                 name = _short(e.key)
                 times[name] = times.get(name, 0.0) + t / reps / 1e3
-        if times:
+                count += e.count
+        if times and ops_ok(count / reps):
             if by_kernel is not None:
                 by_kernel.update(times)
+            if ops is not None:
+                ops["per_call"] = count / reps
             return sum(times.values())
+        log(f"device_ms: a profiler session recorded {count} device ops over "
+            f"{reps} calls; repeated")
     return None
 
 
-def timed(torch, plain, kernel, reps=20, plain_reps=5):
+@contextlib.contextmanager
+def k1_route_forced(mp, route):
+    """Inside, every K1 call whose window admits the cells route takes
+    ``route``: the route rule's pair threshold (``CELLS_MIN_PAIRS``) moved
+    below any call or past every call.  Only for timing the route that
+    the rule did not pick; the port never moves it."""
+    saved = mp.CELLS_MIN_PAIRS
+    mp.CELLS_MIN_PAIRS = -1 if route == "cells" else float("inf")
+    try:
+        yield
+    finally:
+        mp.CELLS_MIN_PAIRS = saved
+
+
+def cells_admitted(mp, args):
+    """Whether the window and the target count of a K1 call (the
+    kernel's arguments) admit the cells route."""
+    return (args[7] <= mp.WINDOW_MAX_RADIUS ** 2
+            and args[3].shape[1] <= mp.MAX_SMEM_TARGETS)
+
+
+def timed(torch, plain, kernel, reps=20, plain_reps=5,
+          ops_ok=float.is_integer):
     """The kernel's and the plain version's device ms per call
-    (torch.profiler; None where it recorded nothing) and their CUDA-event
-    ms per call including the Python wrapper, in turns."""
+    (torch.profiler; None where it recorded nothing; ``ops_ok`` as in
+    device_ms, for the kernel) and their CUDA-event ms per call including
+    the Python wrapper, in turns."""
     ev, plain_ev = in_turns(torch, plain, kernel)
-    parts = {}
-    ms = device_ms(torch, kernel, reps, parts)
+    parts, ops = {}, {}
+    ms = device_ms(torch, kernel, reps, parts, ops=ops, ops_ok=ops_ok)
     plain_ms = device_ms(torch, plain, plain_reps)
     return dict(ms=ms, plain_ms=plain_ms, event_ms=ev, plain_event_ms=plain_ev,
-                parts_ms=parts)
+                parts_ms=parts, ops_per_call=ops.get("per_call"))
 
 
 def us(ms):
@@ -284,60 +359,121 @@ def match_case(torch, g, B, Ns, Nt, centers, dev):
             t(g.uniform(0, 1, (B, Nt)) < 0.95, torch.bool))
 
 
+def k1_inputs(torch, g, case, dev):
+    """One case of K1_CASES: the kernel's arguments (the radii squared and
+    rounded to f32, as match_features_pallas passes them) and
+    match_features_pallas's keywords."""
+    label, B, Ns, Nt, centers, rmin, rmax = case
+    args = match_case(torch, g, B, Ns, Nt, centers, dev)
+    if label == RELOC_K1:
+        args = (args[0], torch.zeros_like(args[1]),
+                torch.as_tensor(g.uniform(0, 1, (B, Ns)) < 0.2,
+                                device=dev)) + args[3:]
+    kw = dict(min_radius=rmin, max_radius=rmax, max_distance=90.0,
+              ratio=0.8, window_center0=args[1] if centers else None)
+    return args + (float(np.float32(rmin * rmin)),
+                   float(np.float32(rmax * rmax)), 90.0, 0.8), kw
+
+
+def k5_inputs(torch, dev):
+    """K5's inputs on a rendered frame's canvas and keypoints (the main
+    path's shape)."""
+    from sfm_tpu_torch.features.descriptor import patch_inputs
+    from sfm_tpu_torch.features.detect import detect
+    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+    scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
+    rv, tv = strafe_trajectory(2, step=0.06, yaw_rate=0.001)
+    img = torch.as_tensor(scene.render(K, rv[0], tv[0], 480, 640), device=dev)
+    kps, canvas = detect(img, max_keypoints=512, levels=4, return_canvas=True)
+    return patch_inputs(canvas, kps, 4, 640)
+
+
+def time_calls(torch, dev):
+    """K1 as the whole match_features_pallas call at the five K1_CASES
+    shapes, and K5's call, in device time with the device ops per call.
+    Runs on whatever sfm_tpu_torch is first on the path (``--calls DIR``),
+    so that two commits are timed by the same code on one card."""
+    from sfm_tpu_torch.features import match_pallas as mp
+    from sfm_tpu_torch.features import patches_pallas as pp
+    g = np.random.default_rng(5)
+    out = {}
+    for case in K1_CASES:
+        args, kw = k1_inputs(torch, g, case, dev)
+        ops = {}
+        ms = device_ms(torch, lambda: mp.match_features_pallas(*args[:6], **kw),
+                       ops=ops)
+        out[case[0]] = dict(ms=ms, ops_per_call=ops.get("per_call"))
+        log(f"K1 {case[0]} whole call: {us(ms)} device, "
+            f"{ops.get('per_call')} device ops per call")
+    canvas_s, cx, cy = k5_inputs(torch, dev)
+    ops = {}
+    ms = device_ms(torch, lambda: pp.extract_patches_kernel(canvas_s, cx, cy),
+                   ops=ops)
+    out["patch_sampler"] = dict(ms=ms, ops_per_call=ops.get("per_call"))
+    log(f"K5 call: {us(ms)} device, {ops.get('per_call')} device ops per call")
+    return out
+
+
 def check_kernels(torch, dev):
     from sfm_tpu_torch.features import match_pallas as mp
     from sfm_tpu_torch.features import patches_pallas as pp
-    from sfm_tpu_torch.features.detect import detect
-    from sfm_tpu_torch.features.descriptor import patch_inputs
-    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
 
     g = np.random.default_rng(5)
     rows = {}
-    # (label, B, Ns, Nt, window centres, min_r, max_r): the main path's
-    # calls — tracking, widen, mapping triangulation, re-observation — and
-    # relocalization's windowless global match of every landmark slot
-    # (zero source positions, radius 1e9, of which 20% are live)
-    cases = (("512x512", 1, 512, 512, False, 1.5, 40.0),
-             ("2048x512 centres", 1, 2048, 512, True, 0.0, 7.0),
-             ("9x512x512", 9, 512, 512, False, 1.5, 120.0),
-             ("16x2048x512 centres", 16, 2048, 512, True, 0.0, 7.0),
-             (RELOC_K1, 1, 8192, 512, False, 0.0, 1e9))
     k1 = []
-    for label, B, Ns, Nt, centers, rmin, rmax in cases:
-        args = match_case(torch, g, B, Ns, Nt, centers, dev)
-        if label == RELOC_K1:
-            args = (args[0], torch.zeros_like(args[1]),
-                    torch.as_tensor(g.uniform(0, 1, (B, Ns)) < 0.2,
-                                    device=dev)) + args[3:]
-        # the radii squared and rounded to f32, as match_features_pallas
-        # passes them
-        args = args + (float(np.float32(rmin * rmin)),
-                       float(np.float32(rmax * rmax)), 90.0, 0.8)
-        a = mp.hamming_match_kernel(*args)
-        b = mp.hamming_match_plain(*args)
+    for case in K1_CASES:
+        label = case[0]
+        args, kw = k1_inputs(torch, g, case, dev)
+        a = mp.hamming_match_kernel(*args) + mp.match_result_kernel(*args)
+        b = mp.hamming_match_plain(*args) + mp.match_result_plain(*args)
         torch.cuda.synchronize()
-        for name, x, y in zip(("idx", "best", "second", "keys"), a, b):
+        for name, x, y in zip(("idx", "best", "second", "keys", "result idx",
+                               "result dist", "result mask"), a, b):
             if not torch.equal(x, y):
                 raise AssertionError(
                     f"K1 {label}: {name} differs from the plain version at "
                     f"{int((x != y).sum())} entries")
-        kw = dict(min_radius=rmin, max_radius=rmax, max_distance=90.0,
-                  ratio=0.8,
-                  window_center0=args[1] if centers else None)
         res_k = mp.match_features_pallas(*args[:6], **kw)
         n_match = int(res_k.mask.sum())
         if n_match == 0:
             raise AssertionError(f"K1 {label}: no matches in the test case")
         err = float((a[1] - b[1]).abs().max())
-        t = timed(torch, lambda: mp.hamming_match_plain(*args),
-                  lambda: mp.hamming_match_kernel(*args))
+        route = mp.k1_route(args[7], *args[0].shape[:2], args[3].shape[1])
+
+        def call():
+            return mp.match_features_pallas(*args[:6], **kw)
+        # K1 is the whole call: the key table, the match pass, the epilogue
+        t = timed(torch, lambda: mp.match_result_plain(*args), call,
+                  ops_ok=lambda n: n == K1_MAX_OPS)
+        if t["ops_per_call"] is None or t["ops_per_call"] > K1_MAX_OPS:
+            raise AssertionError(f"K1 {label}: {t['ops_per_call']} device ops "
+                                 f"per call (at most {K1_MAX_OPS})")
+        kernel_only = sum(v for k, v in t["parts_ms"].items()
+                          if k in K1_PASSES)
         bd = k1_bound(torch, args)
-        k1.append(dict(shape=label, max_abs_err=err, matches=n_match,
-                       library_ms=None, **t, **bd))
-        log(f"K1 {label}: exact, {n_match} matches, kernel {us(t['ms'])} "
-            f"device ({t['event_ms']:.4f} ms events), plain "
-            f"{us(t['plain_ms'])} device ({t['plain_event_ms']:.4f} ms); "
-            f"bound {us(bd['bound_ms'])} ({bd['bound_by']}: "
+        row = dict(shape=label, route=route, max_abs_err=err, matches=n_match,
+                   library_ms=None, kernel_only_ms=kernel_only, **t, **bd)
+        alt_msg = ""
+        if cells_admitted(mp, args):
+            # the route the rule did not pick, held and timed on the same
+            # inputs: what the rule's choice is worth here
+            other = "dense_int" if route == "cells" else "cells"
+            with k1_route_forced(mp, other):
+                same = all(torch.equal(x, y) for x, y in zip(
+                    mp.match_result_kernel(*args), b[4:]))
+                if not same:
+                    raise AssertionError(f"K1 {label}: the {other} route "
+                                         f"differs from the plain version")
+                row["other_route"] = other
+                row["other_route_ms"] = device_ms(
+                    torch, call, ops_ok=lambda n: n == K1_MAX_OPS)
+            alt_msg = f"; the {other} route {us(row['other_route_ms'])}"
+        k1.append(row)
+        log(f"K1 {label}: exact, {n_match} matches, route {route}, whole call "
+            f"{us(t['ms'])} device in {t['ops_per_call']} device ops "
+            f"(match pass {us(kernel_only)}; {t['event_ms']:.4f} ms events), "
+            f"plain {us(t['plain_ms'])} device ({t['plain_event_ms']:.4f} ms)"
+            f"{alt_msg}; bound {us(bd['bound_ms'])} ({bd['bound_by']}: "
             f"{bd['bytes']} B, {bd['ops']:.3e} ops)"
             f"{share(bd['bound_ms'], t['ms'])}")
     # the kernels line keeps the batched mapping shape; every shape is in
@@ -346,20 +482,17 @@ def check_kernels(torch, dev):
         next(r for r in k1 if r["shape"] == "16x2048x512 centres"),
         per_shape=k1)
 
-    # K5 on a rendered frame's canvas and keypoints (the main path's shape)
-    scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
-    rv, tv = strafe_trajectory(2, step=0.06, yaw_rate=0.001)
-    img = torch.as_tensor(scene.render(K, rv[0], tv[0], 480, 640), device=dev)
-    kps, canvas = detect(img, max_keypoints=512, levels=4, return_canvas=True)
-    canvas_s, cx, cy = patch_inputs(canvas, kps, 4, 640)
+    canvas_s, cx, cy = k5_inputs(torch, dev)
     a = pp.extract_patches_kernel(canvas_s, cx, cy)
     b = pp.extract_patches_plain(canvas_s, cx, cy)
     torch.cuda.synchronize()
     err = float((a - b).abs().max())
-    if not err <= 1e-3:
-        raise AssertionError(f"K5: max abs error {err} > 1e-3")
+    if not torch.equal(a, b):
+        raise AssertionError(f"K5: differs from the plain version (max abs "
+                             f"err {err})")
     t = timed(torch, lambda: pp.extract_patches_plain(canvas_s, cx, cy),
-              lambda: pp.extract_patches_kernel(canvas_s, cx, cy))
+              lambda: pp.extract_patches_kernel(canvas_s, cx, cy),
+              ops_ok=lambda n: n == 1)
     # the library yardstick: F.grid_sample (bilinear, zero padding) at the
     # same 33 x 33 sample positions, one call; the port never calls it
     F = torch.nn.functional
@@ -382,10 +515,10 @@ def check_kernels(torch, dev):
                                        f"{tuple(canvas_s.shape)}",
                                  max_abs_err=err, library_ms=lib_ms,
                                  library_max_abs_err=lib_err, **t, **bd)
-    log(f"K5 {rows['patch_sampler']['shape']}: max abs err {err}, kernel "
-        f"{us(t['ms'])} device ({t['event_ms']:.4f} ms events), plain "
-        f"{us(t['plain_ms'])} device; F.grid_sample {us(lib_ms)} device "
-        f"(max abs diff {lib_err:.2e}); bound {us(bd['bound_ms'])} "
+    log(f"K5 {rows['patch_sampler']['shape']}: equal to the plain version, "
+        f"kernel {us(t['ms'])} device ({t['event_ms']:.4f} ms events), "
+        f"plain {us(t['plain_ms'])} device; F.grid_sample {us(lib_ms)} "
+        f"device (max abs diff {lib_err:.2e}); bound {us(bd['bound_ms'])} "
         f"({bd['bound_by']}: {bd['bytes']} B of which {bd['window_bytes']} "
         f"B of canvas windows, {bd['ops']} ops)"
         f"{share(bd['bound_ms'], t['ms'])}")
@@ -625,13 +758,30 @@ def bench_ba_device(torch, once, iterations=8):
     return dict(device_ms_per_lm_iter=dev_iter, ba_kernels_ms_per_lm_iter=ba)
 
 
-def count_k1_sites(native):
+def _kept(torch, t):
+    """A copy of a recorded K1 operand; an expanded one (batch stride 0)
+    stays expanded."""
+    if not torch.is_tensor(t):
+        return t
+    if t.dim() and t.shape[0] > 1 and t.stride(0) == 0:
+        return t[:1].clone().expand_as(t)
+    return t.clone()
+
+
+def count_k1_sites(native, record=None):
     """Wrap the matcher entry of each engine module so that K1's launches
     are also counted by calling function ("module.function"); returns the
     counts and a function that undoes the wrapping.  The wrapper counts
-    what the kernel's own counter adds, nothing else."""
+    what the kernel's own counter adds, nothing else.  With a list
+    ``record``, each K1 call also appends (site, a copy of the kernel's
+    arguments), taken at the K1 dispatch ``match_pallas.hamming_match``,
+    for the replay in ``k1_by_site``."""
     import importlib
-    sites, undo = {}, []
+
+    import torch
+
+    from sfm_tpu_torch.features import match_pallas as mp
+    sites, undo, current = {}, [], [None]
     for stem in ("bootstrap", "tracking", "mapping", "reloc"):
         mod = importlib.import_module(f"sfm_tpu_torch.engine.{stem}")
         real = mod.match_features_pallas
@@ -639,23 +789,100 @@ def count_k1_sites(native):
         def wrapped(*a, _real=real, _stem=stem, **kw):
             site = f"{_stem}.{sys._getframe(1).f_code.co_name}"
             n0 = native.LAUNCHES["hamming_match"]
-            out = _real(*a, **kw)
+            current[0] = site
+            try:
+                out = _real(*a, **kw)
+            finally:
+                current[0] = None
             sites[site] = sites.get(site, 0) \
                 + native.LAUNCHES["hamming_match"] - n0
             return out
         mod.match_features_pallas = wrapped
-        undo.append((mod, real))
+        undo.append((mod, "match_features_pallas", real))
+    if record is not None:
+        dispatch = mp.hamming_match
+
+        def recorded(*a):
+            record.append((current[0], tuple(_kept(torch, x) for x in a)))
+            return dispatch(*a)
+        mp.hamming_match = recorded
+        undo.append((mp, "hamming_match", dispatch))
 
     def restore():
-        for mod, real in undo:
-            mod.match_features_pallas = real
+        for mod, name, real in undo:
+            setattr(mod, name, real)
     return sites, restore
 
 
-def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
+def k1_by_site(torch, calls):
+    """K1 on the FLAGSHIP scan's own calls (``calls``: (site, kernel
+    arguments) as ``count_k1_sites`` recorded them), replayed after the
+    scan, grouped by call site and route.  Each call is held bit for bit
+    against the plain version.  Per group: the calls, the device us per
+    call (every device op of the calls under torch.profiler, exactly three
+    a call), the bound (``k1_bound``, mean over the calls), the device us
+    a call takes on the route the rule did not pick where the window
+    admits both, and launches x (us - bound), the device time the group
+    loses per scan."""
+    from sfm_tpu_torch.features import match_pallas as mp
+    groups = {}
+    for site, args in calls:
+        route = mp.k1_route(args[7], *args[0].shape[:2], args[3].shape[1])
+        groups.setdefault((site, route), []).append(args)
+    out = {}
+    for (site, route), group in groups.items():
+        label = f"{site} [{route}]"
+
+        def check(what):
+            for args in group:
+                for x, y in zip(mp.match_result_kernel(*args),
+                                mp.match_result_plain(*args)):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"K1 {label}: {what} differs "
+                                             f"from the plain version")
+
+        def run(group=group):
+            for args in group:
+                mp.match_result_kernel(*args)
+        n = len(group)
+        check("the kernel")
+        ms = device_ms(torch, run, reps=5,
+                       ops_ok=lambda c, n=n: c == K1_MAX_OPS * n)
+        if ms is None:
+            raise AssertionError(f"K1 {label}: no whole profiler session")
+        bound_us = 1e3 * float(np.mean([k1_bound(torch, a)["bound_ms"]
+                                        for a in group]))
+        row = dict(site=site, route=route, calls=n, us=1e3 * ms / n,
+                   bound_us=bound_us,
+                   lost_ms=n * (1e3 * ms / n - bound_us) / 1e3,
+                   shapes=sorted({f"{a[0].shape[0]}x{a[0].shape[1]}x"
+                                  f"{a[3].shape[1]}" for a in group}),
+                   max_r=sorted({round(float(np.sqrt(a[7])), 3)
+                                 for a in group}))
+        msg = ""
+        if all(cells_admitted(mp, a) for a in group):
+            other = "dense_int" if route == "cells" else "cells"
+            with k1_route_forced(mp, other):
+                check(f"the {other} route")
+                o = device_ms(torch, run, reps=5,
+                              ops_ok=lambda c, n=n: c == K1_MAX_OPS * n)
+            row.update(other_route=other,
+                       other_route_us=None if o is None else 1e3 * o / n)
+            msg = f"; the {other} route {us(o and o / n)}"
+        out[label] = row
+        log(f"K1 on the FLAGSHIP scan's calls, {label}: {n} calls "
+            f"{row['shapes']} radius {row['max_r']}, exact, {us(ms / n)} "
+            f"device per call{msg}; bound {row['bound_us']:.2f} us; lost per "
+            f"scan {row['lost_ms']:.4f} ms")
+    return out
+
+
+def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
+              k1_calls=None):
     """add_frames over the bench.py scan in chunks of keyframe_time_lag
     frames, then the checks; every counter in ``kernels`` must have been
-    launched by the scan.  K1's launches are also counted per call site."""
+    launched by the scan.  K1's launches are also counted per call site,
+    and its calls recorded into the list ``k1_calls`` when given."""
     from sfm_tpu_torch import native
     from sfm_tpu_torch.engine import SfMEngine, run_pending_mapping
     from sfm_tpu_torch.engine.state import scalar
@@ -677,7 +904,7 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES):
               for i in range(0, n_frames, chunk)]
     sync()
 
-    k1_sites, restore = count_k1_sites(native)
+    k1_sites, restore = count_k1_sites(native, k1_calls)
     try:
         native.reset_launch_counts()
         t0 = time.perf_counter()
@@ -977,7 +1204,13 @@ def run_cli(torch, dev, H=480, W=640, K=K, n=24, resume_frames=8,
                 resume_points=b["points"])
 
 
-def main():
+def main(argv):
+    calls = "--calls" in argv
+    if calls:
+        # time another tree's sfm_tpu_torch (e.g. a git archive of the
+        # parent commit) with this script's code
+        tree = argv[argv.index("--calls") + 1:][:1] or ["."]
+        sys.path.insert(0, tree[0])
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -987,6 +1220,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     from sfm_tpu_torch import native
+    if calls:
+        log(f"timing the calls of {native.__file__}")
+        print(json.dumps({"calls": time_calls(torch, dev)}))
+        print(card[0])
+        return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     native.library()
@@ -994,8 +1232,9 @@ def main():
         f"({native.BUILD_INFO['path']})")
     log(native.BUILD_INFO.get("ptxas", ""))
     from sfm_tpu_torch.config import FLAGSHIP, SLICE, SfMConfig
+    k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
-                         MAIN_PATH)
+                         MAIN_PATH, k1_calls=k1_calls)
     dense = run_slice(torch, dev, SfMConfig(**SLICE), "dense",
                       ("hamming_match", "patch_sampler"))
     bench, bench_once = run_bench_ba(torch, dev)
@@ -1008,6 +1247,11 @@ def main():
     # torch.profiler last: a profiler session leaves the host slower for
     # the host-bound phases after it
     rows = check_kernels(torch, dev)
+    k1_sites = k1_by_site(torch, k1_calls)
+    if sum(r["calls"] for r in k1_sites.values()) \
+            != flagship["launches"]["hamming_match"]:
+        raise AssertionError("K1: the recorded calls are not the scan's "
+                             "launches")
     rows.update(check_ba_kernels(torch, dev))
     bench.update(bench_ba_device(torch, bench_once))
     kernels = []
@@ -1025,7 +1269,8 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"],
-            event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"]))
+            event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
+            ops_per_call=r["ops_per_call"]))
     print(json.dumps({
         "flagship": {k: v for k, v in flagship.items() if k != "launches"},
         "dense": {k: v for k, v in dense.items() if k != "launches"},
@@ -1033,6 +1278,8 @@ def main():
         "k1_bounds": {r["shape"]: dict(bound_ms=r["bound_ms"],
                                        bound_by=r["bound_by"])
                       for r in rows["hamming_match"]["per_shape"]},
+        "k1_by_site": k1_sites,
+        "k1_lost_ms_per_scan": sum(r["lost_ms"] for r in k1_sites.values()),
         "live": live, "flow": {k: v for k, v in flow.items()
                                if k != "launches"}, "cli": cli,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
@@ -1046,4 +1293,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

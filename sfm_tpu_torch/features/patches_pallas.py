@@ -56,6 +56,8 @@ def extract_patches_kernel(canvas_s: torch.Tensor, cx: torch.Tensor,
         raise ValueError("extract_patches: inputs on different devices")
     Hc, Wc = canvas_s.shape
     out = torch.empty((N, PATCH, PATCH), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
     lib = native.library()
     rc = lib.sfm_extract_patches(canvas_s.data_ptr(), Hc, Wc, cx.data_ptr(),
                                  cy.data_ptr(), N, out.data_ptr(),

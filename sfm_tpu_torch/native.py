@@ -36,10 +36,13 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry point -> (source stem in csrc/, argument types)
 _SIGNATURES = {
-    "sfm_hamming_match": ("match", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                    _F, _F, _F, _P, _P, _P, _P, _P]),
+    "sfm_hamming_match": ("match", [_P, _L] * 6 + [_I, _I, _I, _F, _F, _F, _F,
+                                                   _I, _I, _D, _D]
+                          + [_P] * 8),
     "sfm_extract_patches": ("patches", [_P, _I, _I, _P, _P, _I, _P, _P]),
     "sfm_ba_linearize": ("linearize", [_P] * 11 + [_I, _I, _I, _F]
                          + [_P] * 7),

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import TEST_K, ba_scene, match_case, to_t
+from torch_port_util import (TEST_K, ba_scene, match_case,
+                             noisy_copies, rand_desc, to_t)
 
 from sfm_tpu_torch import native
 from sfm_tpu_torch.ba import linearize_pallas as lp
@@ -33,23 +34,79 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,ns,nt,centers", [
-    (1, 512, 512, False), (1, 2048, 512, True), (9, 512, 512, False),
-    (2, 17000, 64, False)])
-def test_hamming_kernel_equals_plain(cuda, B, ns, nt, centers):
-    rng = np.random.default_rng(ns + B)
-    cases = [match_case(rng, ns, nt) for _ in range(B)]
+# (B, Ns, Nt, window centres, min_r, max_r, share of valid sources): the
+# main path's five shapes (tracking, widen_tracks, triangulation,
+# re-observation, relocalization's windowless match), then a batch past
+# 16384 sources, Nt = 1 and an Nt that is no tile multiple
+K1_SHAPES = {
+    "tracking": (1, 512, 512, False, 1.5, 40.0, 0.9),
+    "widen": (1, 2048, 512, True, 0.0, 7.0, 0.9),
+    "triangulation": (9, 512, 512, False, 1.5, 120.0, 0.9),
+    "reobservation": (16, 2048, 512, True, 0.0, 7.0, 0.9),
+    "reloc": (1, 8192, 512, False, 0.0, 1e9, 0.2),
+    "17000x64": (2, 17000, 64, False, 0.0, 20.0, 0.9),
+    "nt1": (3, 300, 1, False, 0.0, 40.0, 0.9),
+    "nt77": (2, 300, 77, True, 0.0, 40.0, 0.9),
+}
+
+
+def _k1_args(cuda, B, ns, nt, centers, rmin, rmax, live, seed=0):
+    rng = np.random.default_rng(seed + ns + B)
+    cases = [match_case(rng, ns, nt, extent=640.0) for _ in range(B)]
     t = [to_t(np.stack([c[i] for c in cases])).to(cuda) for i in range(6)]
     if centers:
         t[1] = t[1] + 1.5
-    args = (*t, 1.5 ** 2, 40.0 ** 2, 120.0, 0.9)
+    t[2] = t[2] & to_t(rng.uniform(0, 1, (B, ns)) < live).to(cuda)
+    f = mp._f32
+    return (*t, f(rmin * rmin), f(rmax * rmax), 90.0, 0.8)
+
+
+_K1_OUTPUTS = ("idx", "best", "second", "keys", "res_idx", "res_dist",
+               "res_mask")
+
+
+def _same_as_plain(args, ref):
+    """The kernel's raw outputs and MatchResult against ``ref`` (the plain
+    versions' outputs, broadcast over the batch axis); one launch counted
+    per call.  Returns the route the call's shape selected."""
     n0 = native.LAUNCHES["hamming_match"]
-    out = mp.hamming_match_kernel(*args)
-    ref = mp.hamming_match_plain(*args)
+    out = mp.hamming_match_kernel(*args) + mp.match_result_kernel(*args)
     torch.cuda.synchronize()
-    assert native.LAUNCHES["hamming_match"] == n0 + 1
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
+    assert native.LAUNCHES["hamming_match"] == n0 + 2
+    route = mp.k1_route(args[7], *args[0].shape[:2], args[3].shape[1])
+    for name, a, b in zip(_K1_OUTPUTS, out, ref):
+        assert torch.equal(a, b.expand_as(a)), (route, name)
+    return route
+
+
+def _k1_equal(args, n_match_min=0):
+    """The raw outputs and MatchResult equal the plain versions' bit for
+    bit through the route the call's shape selects.  Where the window
+    admits the cells route, also through both routes by shape: each batch
+    element alone (too few pairs: the dense route) and repeated with batch
+    stride 0 past ``CELLS_MIN_PAIRS`` pairs (the cells route), against the
+    plain outputs of that element.  Returns the routes checked."""
+    ref = mp.hamming_match_plain(*args) + mp.match_result_plain(*args)
+    assert int(ref[6].sum()) >= n_match_min
+    routes = {_same_as_plain(args, ref)}
+    B, ns = args[0].shape[:2]
+    nt = args[3].shape[1]
+    if args[7] <= mp.WINDOW_MAX_RADIUS ** 2 and nt <= mp.MAX_SMEM_TARGETS:
+        rep = mp.CELLS_MIN_PAIRS // (ns * nt) + 1
+        for b in range(B):
+            one = [t[b:b + 1] for t in args[:6]]
+            ref_b = [r[b:b + 1] for r in ref]
+            routes.add(_same_as_plain((*one, *args[6:]), ref_b))
+            routes.add(_same_as_plain(
+                (*(t.expand(rep, *t.shape[1:]) for t in one), *args[6:]),
+                ref_b))
+        assert routes == {"cells", "dense_int"}
+    return routes
+
+
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+def test_hamming_kernel_equals_plain(cuda, shape):
+    _k1_equal(_k1_args(cuda, *K1_SHAPES[shape]), n_match_min=1)
 
 
 def test_hamming_kernel_reloc_shape(cuda):
@@ -61,26 +118,148 @@ def test_hamming_kernel_reloc_shape(cuda):
     v0 = rng.uniform(0, 1, 8192) < 0.2
     t = [to_t(a[None]).to(cuda) for a in (d0, np.zeros((8192, 2), np.float32),
                                           v0, d1, xy1, v1)]
-    args = (*t, 0.0, float(np.float32(1e9 * 1e9)), 90.0, 0.8)
-    out = mp.hamming_match_kernel(*args)
-    ref = mp.hamming_match_plain(*args)
-    torch.cuda.synchronize()
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
+    _k1_equal((*t, 0.0, float(np.float32(1e9 * 1e9)), 90.0, 0.8))
     res = mp.match_features_pallas(*t, min_radius=0.0, max_radius=1e9,
                                    max_distance=90.0, ratio=0.8)
     assert int(res.mask.sum()) > 100
 
 
-def test_patch_kernel_equals_plain(cuda):
-    rng = np.random.default_rng(0)
-    canvas = to_t(rng.uniform(0, 255, (480, 1200)).astype(np.float32)).to(cuda)
-    cx = to_t(rng.uniform(-20, 1220, 512).astype(np.float32)).to(cuda)
-    cy = to_t(rng.uniform(-20, 500, 512).astype(np.float32)).to(cuda)
-    out = pp.extract_patches_kernel(canvas, cx, cy)
-    ref = pp.extract_patches_plain(canvas, cx, cy)
-    torch.cuda.synchronize()
-    assert float((out - ref).abs().max()) <= 1e-3
+def test_hamming_kernel_window_edges(cuda):
+    """Pairs exactly on d2 == max_r2 and on d2 == min_r2 in f32
+    (Pythagorean offsets from centres at several magnitudes), and targets
+    on exact multiples of the cells route's cell side and one ulp either
+    side, with sources at the window radius from them."""
+    rng = np.random.default_rng(11)
+    r = 5.0
+    offs = np.array([(3, 4), (-4, 3), (5, 0), (0, -5), (4, -3), (-3, -4)],
+                    np.float32)
+    base = np.array([(0.0, 0.0), (1000.25, 17.5), (-333.5, 640.0),
+                     (65536.0, 3.0)], np.float32)
+    src = np.repeat(base, len(offs), 0)
+    tgt = (src + np.tile(offs, (len(base), 1))).astype(np.float32)
+    reach, _ = mp.window_geometry(mp._f32(r * r))
+    edge = np.float32(np.arange(-3, 40) * reach)
+    edges = np.concatenate([np.nextafter(edge, np.float32(-1e9)), edge,
+                            np.nextafter(edge, np.float32(1e9))])
+    tgt = np.concatenate([tgt, np.stack([edges, np.zeros_like(edges)], 1)])
+    src = np.concatenate([src, np.stack([edges + np.float32(r),
+                                         np.zeros_like(edges)], 1)])
+    src = src.astype(np.float32)
+    ns, nt = len(src), len(tgt)
+    d1 = rand_desc(rng, nt)
+    pick = rng.integers(0, nt, ns)
+    d0 = noisy_copies(rng, d1, pick, flip_p=0.02)
+    t = [to_t(a[None]).to(cuda) for a in (d0, src, np.ones(ns, bool), d1,
+                                          tgt.astype(np.float32),
+                                          np.ones(nt, bool))]
+    r2 = mp._f32(r * r)
+    for min_r2, max_r2 in ((0.0, r2), (r2, mp._f32(6.0 ** 2))):
+        args = (*t, min_r2, max_r2, 512.0, 1.01)
+        d2 = ((t[1][0, :, None, :] - t[4][0, None, :, :]) ** 2).sum(-1)
+        assert int((d2 == r2).sum()) > 20
+        _k1_equal(args)
+
+
+def test_hamming_kernel_all_invalid_and_infeasible(cuda):
+    """No valid source, no valid target, or no target inside any window:
+    every row is (idx 0, 1e9, 1e9), no key, no match."""
+    rng = np.random.default_rng(12)
+    d0, xy0, v0, d1, xy1, v1 = match_case(rng, 700, 300)
+    far = (xy1 + 5000.0).astype(np.float32)
+    for variant in ((d0, xy0, ~np.ones_like(v0), d1, xy1, v1),
+                    (d0, xy0, v0, d1, xy1, ~np.ones_like(v1)),
+                    (d0, xy0, v0, d1, far, v1)):
+        t = [to_t(a[None]).to(cuda) for a in variant]
+        for max_r in (7.0, 120.0):
+            args = (*t, 0.0, mp._f32(max_r * max_r), 90.0, 0.8)
+            _k1_equal(args)
+            idx, best, second, keys = mp.hamming_match_kernel(*args)
+            assert not idx.any() and (best == 1e9).all()
+            assert (second == 1e9).all()
+            assert (keys == torch.iinfo(torch.int64).max).all()
+
+
+@pytest.mark.parametrize("which", ["targets", "sources"])
+def test_hamming_kernel_stride0_operands(cuda, which):
+    """Triangulation's expanded targets (x9) and re-observation's expanded
+    sources (x16) go in with batch stride 0 and equal the copied
+    operands' results."""
+    rng = np.random.default_rng(13)
+    B = 9 if which == "targets" else 16
+    one = [to_t(a).to(cuda) for a in match_case(rng, 512, 512, extent=640.)]
+    other = [to_t(np.stack([c[i] for c in (match_case(rng, 512, 512,
+                                                      extent=640.)
+                                           for _ in range(B))])).to(cuda)
+             for i in range(6)]
+    if which == "targets":
+        t = other[:3] + [a[None].expand(B, *a.shape) for a in one[3:]]
+    else:
+        t = [a[None].expand(B, *a.shape) for a in one[:3]] + other[3:]
+    assert t[3 if which == "targets" else 0].stride(0) == 0
+    for max_r in (7.0, 120.0):
+        args = (*t, 0.0, mp._f32(max_r * max_r), 90.0, 0.8)
+        _k1_equal(args)
+        copied = (*[a.contiguous() for a in t], *args[6:])
+        for a, b in zip(mp.match_result_kernel(*args),
+                        mp.match_result_kernel(*copied)):
+            assert torch.equal(a, b)
+
+
+def test_match_call_device_ops(cuda):
+    """A match_features_pallas call on the card runs at most three device
+    operations (the key table's initialisation, the match pass, the
+    epilogue), with expanded operands too."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(14)
+    one = [to_t(a).to(cuda) for a in match_case(rng, 512, 512, extent=640.)]
+    calls = {
+        "tracking": lambda: mp.match_features_pallas(
+            *one, min_radius=1.5, max_radius=40.0),
+        "triangulation": lambda: mp.match_features_pallas(
+            *[a[None].expand(9, *a.shape) for a in one],
+            min_radius=1.5, max_radius=120.0),
+        "reloc": lambda: mp.match_features_pallas(*one, max_radius=1e9)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if (getattr(e, "self_device_time_total", 0)
+                    or getattr(e, "self_cuda_time_total", 0)) > 0)
+        assert 0 < n <= 3 * 5, (name, n)
+
+
+# (Hc, Wc): the flagship canvas (480 x 1200, rows 16-byte aligned), a
+# width that is no multiple of 4 (canvas_layout's 642 + 321 + 160 + 80),
+# and a canvas smaller than a window
+K5_CANVASES = [(480, 1200), (240, 1203), (20, 25)]
+
+
+@pytest.mark.parametrize("hc,wc", K5_CANVASES)
+def test_patch_kernel_equals_plain(cuda, hc, wc):
+    """Bit for bit, with windows straddling every canvas edge and corner,
+    windows entirely off the canvas, and keypoints anywhere."""
+    rng = np.random.default_rng(hc + wc)
+    canvas = to_t(rng.uniform(0, 255, (hc, wc)).astype(np.float32)).to(cuda)
+    cx = rng.uniform(-40, wc + 40, 512)
+    cy = rng.uniform(-40, hc + 40, 512)
+    edge_x = np.array([0, wc - 1, 0, wc - 1, -17, wc + 16, -60, wc / 2])
+    edge_y = np.array([0, 0, hc - 1, hc - 1, hc / 2, hc / 2, -60, hc + 60])
+    cx = np.concatenate([edge_x + rng.uniform(0, 1, 8), cx])
+    cy = np.concatenate([edge_y + rng.uniform(0, 1, 8), cy])
+    cx, cy = (to_t(a.astype(np.float32)).to(cuda) for a in (cx, cy))
+    n0 = native.LAUNCHES["patch_sampler"]
+    for n in (len(cx), 1, 0):
+        out = pp.extract_patches_kernel(canvas, cx[:n], cy[:n])
+        ref = pp.extract_patches_plain(canvas, cx[:n], cy[:n])
+        torch.cuda.synchronize()
+        assert out.shape == (n, pp.PATCH, pp.PATCH)
+        assert torch.equal(out, ref)
+    # N == 0 launches nothing
+    assert native.LAUNCHES["patch_sampler"] == n0 + 2
 
 
 def test_wrappers_refuse_bad_input(cuda):
@@ -90,6 +269,15 @@ def test_wrappers_refuse_bad_input(cuda):
         pp.extract_patches_kernel(canvas, cx, cx)
     with pytest.raises(ValueError):
         pp.extract_patches_kernel(canvas.t(), cx.float(), cx.float())
+    args = list(_k1_args(cuda, 1, 64, 32, False, 0.0, 7.0, 0.9))
+    bad = list(args)
+    bad[0] = args[0].long()
+    with pytest.raises(TypeError):
+        mp.hamming_match_kernel(*bad)
+    bad = list(args)
+    bad[4] = args[4].cpu()
+    with pytest.raises(ValueError):
+        mp.hamming_match_kernel(*bad)
 
 
 def _close(a, b):

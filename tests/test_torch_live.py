@@ -1,6 +1,8 @@
-"""chip_smoke.py's live-path phases rehearsed on the CPU at TEST_CFG size.
+"""chip_smoke.py's phases rehearsed on the CPU at TEST_CFG size.
 
-The same functions that run on the card at the flagship size: "live"
+The same functions that run on the card at the flagship size: the offline
+scan with K1's calls recorded by call site (the inputs of the replay),
+"live"
 (RGB frames through per-frame add_frame with guidance, blank frames until
 LOST, relocalization, tracking again; every check of the phase), "flow"
 timing, and "cli" (scan with metrics, checkpoint and video, a resumed
@@ -64,3 +66,39 @@ def test_cli_phase(smoke):
                         caps=dict(max_keypoints=192, max_keyframes=8,
                                   max_landmarks=1024))
     assert out["points"] > 30 and out["resume_points"] >= out["points"] - 5
+
+
+def test_offline_phase_records_k1_calls(smoke, counted_k1):
+    """The offline scan's K1 calls, recorded for the replay by call site:
+    one record a launch, the engine's sites, expanded operands kept at
+    batch stride 0 (triangulation's targets, re-observation's sources),
+    each call's plain result unchanged on the recorded copy; the
+    route-forcing context moves the rule and puts it back."""
+    calls = []
+    out = smoke.run_slice(torch, "cpu", SfMConfig(**TEST_CFG_KW), "offline",
+                          ("hamming_match",), K=TEST_K, n_frames=24,
+                          k1_calls=calls)
+    assert len(calls) == out["launches"]["hamming_match"] \
+        == sum(out["k1_sites"].values()) > 0
+    by_site = {}
+    for site, args in calls:
+        by_site.setdefault(site, []).append(args)
+    assert set(by_site) == set(out["k1_sites"]) == {
+        "bootstrap.bootstrap_step", "tracking.tracking_step",
+        "tracking.widen_tracks", "mapping._triangulate_all_pairs",
+        "mapping._reobserve_all"}
+    assert all(a[3].stride(0) == 0
+               for a in by_site["mapping._triangulate_all_pairs"])
+    assert all(a[0].stride(0) == 0 for a in by_site["mapping._reobserve_all"])
+    args = by_site["mapping._reobserve_all"][-1]
+    res = mp.match_result_plain(*args)
+    dense = mp.match_result_plain(*[a.contiguous() if torch.is_tensor(a)
+                                    else a for a in args])
+    assert all(torch.equal(x, y) for x, y in zip(res, dense))
+    assert int(res[2].sum()) > 0
+    track = by_site["tracking.tracking_step"][0]
+    shape = (track[7], *track[0].shape[:2], track[3].shape[1])
+    assert mp.k1_route(*shape) == "dense_int"
+    with smoke.k1_route_forced(mp, "cells"):
+        assert mp.k1_route(*shape) == "cells"
+    assert mp.k1_route(*shape) == "dense_int"

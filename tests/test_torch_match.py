@@ -144,3 +144,120 @@ def test_pack_unpack_round_trip():
     np.testing.assert_array_equal(to_np(bits), ref)
     np.testing.assert_array_equal(to_np(pack_bits(bits > 0)),
                                   words.view(np.int32))
+
+
+# --- the epilogue, stride-0 operands and the cells route's rule ---------
+
+from torch_port_util import cells_visit, f32_d2  # noqa: E402
+
+from sfm_tpu_torch.features import match_pallas as mp  # noqa: E402
+
+
+@pytest.mark.parametrize("kw", [
+    dict(min_radius=1.5, max_radius=40.0, max_distance=90.0, ratio=0.8),
+    dict(min_radius=0.0, max_radius=1e9, max_distance=260.0, ratio=0.9),
+], ids=["window", "windowless"])
+def test_plain_epilogue_equals_jax(kw):
+    """hamming_match_plain's raw outputs through match_epilogue_plain (the
+    contract the card's epilogue pass implements) give JAX's MatchResult."""
+    rng = np.random.default_rng(7)
+    case = match_case(rng, 300, 128)
+    t = [to_t(a)[None] for a in case]
+    f = mp._f32
+    args = (*t, f(kw["min_radius"] ** 2), f(kw["max_radius"] ** 2),
+            f(kw["max_distance"]), f(kw["ratio"]))
+    raw = mp.hamming_match_plain(*args)
+    idx, dist, mask = mp.match_epilogue_plain(*raw, t[2], args[8], args[9])
+    for a, b in zip((idx, dist, mask), mp.match_result_plain(*args)):
+        assert torch.equal(a, b)
+    ref = jax_match(*[jnp.asarray(a) for a in case], **kw)
+    pal = jax_pallas(*[jnp.asarray(a) for a in case], interpret=True, **kw)
+    assert int(mask.sum()) > 20
+    out = mp.MatchResult(idx[0], dist[0], mask[0])
+    _assert_same(out, ref)
+    _assert_same(out, pal)
+
+
+@pytest.mark.parametrize("expanded", ["targets", "sources"])
+def test_stride0_batch_operands(expanded):
+    """An expanded batch operand (triangulation's new keyframe as targets,
+    re-observation's landmark descriptors as sources) matches as the same
+    operand copied, and as JAX's vmapped matchers per batch element."""
+    rng = np.random.default_rng(8)
+    B = 4
+    one = match_case(rng, 200, 96)
+    # each batch element permutes the side that is not expanded, so every
+    # element has its own matches
+    side = slice(0, 3) if expanded == "targets" else slice(3, 6)
+    cases = []
+    for _ in range(B):
+        perm = rng.permutation(len(one[side.start]))
+        moved = tuple(a[perm] for a in one[side])
+        cases.append(moved + one[3:] if expanded == "targets"
+                     else one[:3] + moved)
+    if expanded == "targets":
+        batch = [to_t(np.stack([c[i] for c in cases])) for i in range(3)] + [
+            to_t(a)[None].expand(B, *a.shape) for a in one[3:]]
+    else:
+        batch = [to_t(a)[None].expand(B, *a.shape) for a in one[:3]] + [
+            to_t(np.stack([c[i] for c in cases])) for i in range(3, 6)]
+    assert batch[0 if expanded == "sources" else 3].stride(0) == 0
+    kw = dict(min_radius=0.0, max_radius=60.0, max_distance=260.0, ratio=0.9)
+    out = match_features_pallas(*batch, **kw)
+    copied = match_features_pallas(*[t.contiguous() for t in batch], **kw)
+    for a, b in zip(out, copied):
+        assert torch.equal(a, b)
+    jbatch = [jnp.stack([jnp.asarray(c[i]) for c in cases]) for i in range(6)]
+    pal = jax.vmap(lambda *a: jax_pallas(*a, interpret=True, **kw))(*jbatch)
+    for b, c in enumerate(cases):
+        ref = jax_match(*[jnp.asarray(a) for a in c], **kw)
+        _assert_same(mp.MatchResult(*(t[b] for t in out)), ref)
+        np.testing.assert_array_equal(to_np(out.idx[b]), np.asarray(pal.idx[b]))
+    assert int(out.mask.sum()) > 20
+
+
+def test_cells_exact_boundary_pairs():
+    """Pairs exactly on d2 == max_r2 in f32 (Pythagorean offsets), and
+    targets on exact multiples of the cell side, are visited; a window
+    spans at most 3 cells an axis at image coordinates."""
+    for r, offs in ((5.0, [(3, 4), (-4, 3), (5, 0), (0, -5)]),
+                    (2.5, [(1.5, 2.0), (-2.0, -1.5)]),
+                    (7.0, [(7, 0), (0, 7)])):
+        max_r2 = mp._f32(r * r)
+        reach, inv = mp.window_geometry(max_r2)
+        for base in (0.0, 1000.25, -333.5, 65536.0):
+            for dx, dy in offs:
+                c = (np.float32(base), np.float32(base + 1))
+                t = (np.float32(c[0] + dx), np.float32(c[1] + dy))
+                assert f32_d2(c, t) == max_r2
+                assert cells_visit(c, t, max_r2)
+        for k in range(-5, 20):
+            edge = np.float32(k * reach)
+            for t0 in (np.nextafter(edge, np.float32(-1e9)), edge,
+                       np.nextafter(edge, np.float32(1e9))):
+                c = (np.float32(t0 + r), np.float32(0.0))
+                if f32_d2(c, (t0, 0.0)) <= max_r2:
+                    assert cells_visit(c, (t0, 0.0), max_r2)
+        xs = np.linspace(-100, 2000, 5001, dtype=np.float32)
+        lo, hi = mp.window_cells(xs, reach, inv)
+        assert (hi - lo).max() <= 2
+
+
+def test_route_rule_on_the_engine_calls():
+    """The engine's calls: re-observation (16 x 2048 sources in 7 px
+    windows) takes the cells route; tracking (40 px) and widen_tracks
+    (7 px), too few pairs to pay for binning, triangulation (120 px) and
+    relocalization (radius 1e9) the dense one; more targets than shared
+    memory holds, the dense integer route; an infinite window never the
+    cells route."""
+    f = mp._f32
+    assert mp.k1_route(f(7.0 ** 2), 16, 2048, 512) == "cells"
+    assert mp.k1_route(f(40.0 ** 2), 1, 512, 512) == "dense_int"
+    assert mp.k1_route(f(7.0 ** 2), 1, 2048, 512) == "dense_int"
+    assert mp.k1_route(f(120.0 ** 2), 9, 512, 512) == "dense_int"
+    assert mp.k1_route(f(1e9 * 1e9), 1, 8192, 512) == "dense_int"
+    assert mp.k1_route(f(7.0 ** 2), 16, 2048,
+                       mp.MAX_SMEM_TARGETS + 1) == "dense_int"
+    assert mp.k1_route(float("inf"), 16, 2048, 512) == "dense_int"
+    assert mp._route_mode("dense_int", 1, 8192, f(1e9 * 1e9)) == 0
+    assert mp._route_mode("dense_int", 9, 512, f(120.0 ** 2)) == 1

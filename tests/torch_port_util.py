@@ -60,6 +60,26 @@ def match_case(rng, ns: int, nt: int, extent: float = 200.0,
     return d0, xy0.astype(np.float32), v0, d1, xy1, v1
 
 
+def f32_d2(c, t):
+    """The window test's d2 in float32, each step rounded (as K1's plain
+    version and its kernel compute it)."""
+    dx = np.float32(c[0]) - np.float32(t[0])
+    dy = np.float32(c[1]) - np.float32(t[1])
+    return np.float32(np.float32(dx * dx) + np.float32(dy * dy))
+
+
+def cells_visit(c, t, max_r2) -> bool:
+    """Whether K1's cells route visits target t from window centre c."""
+    from sfm_tpu_torch.features import match_pallas as mp
+    reach, inv = mp.window_geometry(max_r2)
+    for k in range(2):
+        lo, hi = mp.window_cells(np.float32(c[k]), reach, inv)
+        cell = mp.cell_of(np.float32(t[k]), inv)
+        if not lo <= cell <= hi:
+            return False
+    return True
+
+
 def random_scene(rng, n_points=200, depth=(4.0, 8.0), spread=2.0):
     """Points in front of camera 0 (at the origin) and a second camera
     displaced and rotated; exact pixel projections under TEST_K."""
