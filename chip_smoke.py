@@ -24,8 +24,22 @@
    and P3P within 3 frames, and meet the ATE, guidance and colour checks;
 7. "flow": FLAGSHIP with track_with_flow on 30 frames, and lk_flow timed;
 8. "cli": ``cli.main(["scan", ...])`` on the card with metrics, checkpoint
-   and overlay video, then a --resume run, then the PLY files read back;
-9. holds each kernel against its plain PyTorch version at the main path's
+   and overlay video, then a --resume run, then the PLY files read back
+   (the C++ runtime is built before the clock starts);
+9. "cg": the offline scan under FLAGSHIP with ``ba_solver="cg"`` (the
+   per-observation PCG solver, torch ops), 40 frames, with the SLICE
+   checks and its mapping pass beside the large and dense solvers';
+10. "longscan": LONGSCAN (benchmarks/bench_longscan.py's LARGE: 512
+   keyframes, 65536 landmarks, windowed-local mapping BA, global BA every
+   32 keyframe insertions) on bench_longscan's serpentine sweep, 1024 of
+   its 2048 frames through add_frames in chunks of 4, each chunk rendered
+   just before it is fed (by three processes ahead of the engine), ended
+   by two global_ba calls; checks RUNNING, keyframes, the global BA
+   schedule and costs, K2 / K3 / K3-gather in every global BA call, K1 and
+   K5, and the ATE; prints the time split into tracking, mapping passes
+   and global BA, and global BA ms per LM iteration; K1's calls are
+   recorded by call site, as in the FLAGSHIP scan;
+11. holds each kernel against its plain PyTorch version at the main path's
    shapes and times both, in device time (torch.profiler) and with CUDA
    events, beside the kernel's bound (bytes over the memory rate or
    operations over the core rate, from this run's inputs; the card's clock
@@ -34,19 +48,31 @@
    call, three device ops, at its five shapes (relocalization's
    windowless 8192x512 match included), with the route its rule did not
    pick held and timed too where the window admits both; K1 again on the
-   FLAGSHIP scan's own calls, replayed by call site and route (bit for
-   bit, device time per call, bound, the other route, device time lost
-   per scan); K5 bit for bit (with F.grid_sample at the same sample
+   FLAGSHIP scan's and the long scan's own calls, replayed by call site
+   and route (bit for bit, device time per call beside the plain
+   version's, bound, the other route, device time lost per scan); K5 bit
+   for bit (with F.grid_sample at the same sample
    positions as the library yardstick), and the BA kernels K2
    (linearizer) and K3 (Schur apply:
    full, gather and scatter modes) within 1e-4 of the largest entry and
    bit-identical on a rerun, at the flagship's mapping-BA shape (dead rows
    included), at benchmarks/bench_ba.py's 1000-camera problem and, for
    equality only, at its layout with 4096 cameras; then run_large_ba once
-   more under the profiler.  This comes last because a profiler session
-   leaves the host slower for the host-bound phases after it;
-10. prints a JSON line with the phases' numbers, a JSON line with the
-   kernels' numbers, then the card line, then {"ok": true, "device":
+   more under the profiler; then global BA on the long scan's state (host
+   and device ms per LM iteration), and K2, K3 full and K3-gather on the
+   long scan's own last global-BA and mapping-pass problems, where the
+   witness is the plain version run in float64 (the kernel no farther
+   from it, in root mean square, than twice the f32 plain version; K2's
+   gradients also entry by entry, each within GRAD_TOL of the magnitude
+   of its own terms); then
+   the long scan's last 8 frames fed again from the state before them
+   under torch.profiler, for the card's busy share.  This comes last
+   because a profiler session leaves the host slower for the host-bound
+   phases after it (and a long one disturbs the sessions after it);
+12. prints a JSON line with the phases' numbers, a JSON line with the
+   kernels' numbers (the six kernels, then K2 / K3 / K3-gather at the long
+   scan's two shapes, then K1 at the long scan's call sites), then the
+   card line, then {"ok": true, "device":
    {...}} as the last line.
 With ``--calls DIR`` it only times K1's whole call at its five shapes and
 K5's call (device time and device ops per call) for the sfm_tpu_torch
@@ -86,6 +112,17 @@ MAIN_PATH = ("hamming_match", "patch_sampler", "ba_linearize", "schur_apply",
 # g follow it.  Sums run in another order (shuffle trees and a fixed
 # per-camera order in the kernels, atomics in the plain index_add_).
 BA_REL_TOL = 1e-4
+# K2's gradients on a scan's own problems, entry by entry: the distance
+# from the plain version run in float64 over the entry's own term
+# magnitude (``_gradient_terms``), at most this.  On the long scan's last
+# global-BA and mapping problems (NVIDIA H100 80GB HBM3, 700 W) the f32
+# versions read at most 1.5e-7 on g_cam (2.4 units of f32 rounding; a
+# camera sums hundreds of terms, whose rounding partly cancels) and 2.5e-6
+# on g_lm (42 units; a landmark sums at most kmax).  Each limit leaves 3x
+# or more.  An observation missing from an entry moves it by about
+# |r| / |uv| / (its observations) of its magnitude: ~5e-6 for a camera
+# with 350 observations at 0.5 px residuals, ~5e-4 for a landmark.
+GRAD_TOL = {"g_cam": 2.0 ** -20, "g_lm": 2.0 ** -17}
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
 # memory bytes per second, and f32 operations per second outside the
 # tensor cores.  Every kernel's operations, integer ones included, are held
@@ -122,6 +159,8 @@ K1_MAX_OPS = 3
 # K1's match pass kernels, one per route (the other ops of a call are the
 # key table's initialisation and the epilogue)
 K1_PASSES = ("cells_kernel", "dense_kernel")
+# K1 calls a profiler session times in the replay of a scan's calls
+K1_REPLAY_BATCH = 128
 # the live phase: strafe frames before the blanks, and after them
 LIVE_BEFORE, LIVE_AFTER = 40, 20
 
@@ -204,7 +243,7 @@ def warm_clocks(torch, ms=30.0):
 
 
 def device_ms(torch, fn, reps=20, by_kernel=None, attempts=5, ops=None,
-              ops_ok=float.is_integer):
+              ops_ok=float.is_integer, counts=None):
     """Device milliseconds per call of ``fn``: the self device time of
     every device op torch.profiler records over ``reps`` calls, summed (all
     the kernels and copies a wrapper launches), after warm_clocks.  A
@@ -213,8 +252,9 @@ def device_ms(torch, fn, reps=20, by_kernel=None, attempts=5, ops=None,
     none was whole.  A session is whole when it recorded a device event
     and ``ops_ok(device ops per call)`` holds: by default a whole number
     of ops per call (a session that dropped events rarely leaves one).
-    ``by_kernel``, a dict, receives the same per kernel name; ``ops``, a
-    dict, the device ops per call under "per_call"."""
+    ``by_kernel``, a dict, receives the same per kernel name; ``counts``,
+    a dict, the device ops per call by kernel name; ``ops``, a dict, the
+    device ops per call under "per_call"."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -224,17 +264,20 @@ def device_ms(torch, fn, reps=20, by_kernel=None, attempts=5, ops=None,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times, count = {}, 0
+        times, names, count = {}, {}, 0
         for e in prof.key_averages():
             t = getattr(e, "self_device_time_total", None) \
                 or getattr(e, "self_cuda_time_total", 0)
             if t > 0:
                 name = _short(e.key)
                 times[name] = times.get(name, 0.0) + t / reps / 1e3
+                names[name] = names.get(name, 0) + e.count / reps
                 count += e.count
         if times and ops_ok(count / reps):
             if by_kernel is not None:
                 by_kernel.update(times)
+            if counts is not None:
+                counts.update(names)
             if ops is not None:
                 ops["per_call"] = count / reps
             return sum(times.values())
@@ -585,13 +628,13 @@ def _rel_err(a, b):
     return err, err / scale
 
 
-def ba_bound(name, tb, C):
-    """The bound of a BA kernel on a table: its inputs read and outputs
-    written once (f32 / int32; K3 with g and x given), and its flops on the
-    live slots (K2 ~300 per slot; K3 36 per slot and half of the full
-    mode, 18 per landmark for Vinv t)."""
-    L, kmax = tb.lm_cam.shape
-    slots, live = L * kmax, int((tb.lm_w != 0).sum())
+def ba_bound(name, lm_cam, lm_w, C):
+    """The bound of a BA kernel on a table lm_cam / lm_w [L, kmax]: its
+    inputs read and outputs written once (f32 / int32; K3 with g and x
+    given), and its flops on the live slots (K2 ~300 per slot; K3 36 per
+    slot and half of the full mode, 18 per landmark for Vinv t)."""
+    L, kmax = lm_cam.shape
+    slots, live = L * kmax, int((lm_w != 0).sum())
     if name == "ba_linearize":
         # K, R, t, cam_free; xyz, lm_free; lm_cam, uv, w | W; V, g_lm;
         # U, g_cam; cost
@@ -607,17 +650,236 @@ def ba_bound(name, tb, C):
     return bound(io, ops)
 
 
+def _to_f64(torch, *ts):
+    return [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+            for t in ts]
+
+
+def _gradient_terms(torch, args, dtype):
+    """The per-observation terms of K2's gradients, as its plain version
+    forms them, in ``dtype``: (cam [O], lm [O], the g_cam terms [O, 6], the
+    g_lm terms [O, 3], their magnitudes [O, 6] and [O, 3]).  A term's
+    magnitude is |J|^T w (|r| + |uv|): the pixels whose difference makes
+    the residual r enter at their own size, so this bounds what rounding
+    them leaves in the term, however small r is."""
+    from sfm_tpu_torch.ba.residuals import (Observations, huber_weights,
+                                            residuals_and_jacobians)
+    K, R, t, X, lm_free_f, cam_free_f, lm_cam, lm_uv, lm_w, huber = [
+        a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in args]
+    C = R.shape[0]
+    L, kmax = lm_cam.shape
+    cam = lm_cam.reshape(-1).to(torch.int64).clamp(0, C - 1)
+    lm = torch.arange(L, device=X.device).repeat_interleave(kmax)
+    uv = lm_uv.reshape(-1, 2)
+    obs = Observations(cam, lm, uv, lm_w.reshape(-1))
+    r, A, B = residuals_and_jacobians(K, R, t, X, obs)
+    w = obs.w * huber_weights(r, huber)
+    live = (obs.w != 0)[:, None]
+    A = A * (w * cam_free_f[cam])[:, None, None]
+    B = B * (w * lm_free_f[lm])[:, None, None]
+    rw = (r * w[:, None])[:, :, None]
+    m = ((r.abs() + uv.abs()) * w.abs()[:, None])[:, :, None]
+    zero = torch.zeros((), dtype=dtype, device=X.device)
+    return (cam, lm,
+            torch.where(live, -(A.transpose(1, 2) @ rw)[..., 0], zero),
+            torch.where(live, -(B.transpose(1, 2) @ rw)[..., 0], zero),
+            torch.where(live, (A.abs().transpose(1, 2) @ m)[..., 0], zero),
+            torch.where(live, (B.abs().transpose(1, 2) @ m)[..., 0], zero))
+
+
+def _kernel_terms(torch, args):
+    """K2's own per-observation gradient terms: one launch on the live
+    observations of ``args`` laid out one to a landmark row and one to a
+    camera (its pose copied), so that each g_cam and g_lm entry it returns
+    is a single term, unsummed.  Returns (g_cam terms [O, 6], g_lm terms
+    [O, 3]) in ``_gradient_terms``' order, zero at the empty slots."""
+    from sfm_tpu_torch.ba import linearize_pallas as lp
+    K, R, t, X, lm_free_f, cam_free_f, lm_cam, lm_uv, lm_w, huber = args
+    kmax = lm_cam.shape[1]
+    o = torch.nonzero(lm_w.reshape(-1) != 0)[:, 0]
+    cam, lm, n = lm_cam.reshape(-1)[o].long(), o // kmax, len(o)
+    ids = torch.arange(n, dtype=torch.int32, device=X.device)[:, None]
+    out = lp.ba_linearize_kernel(
+        K, R[cam].contiguous(), t[cam].contiguous(), X[lm].contiguous(),
+        lm_free_f[lm].contiguous(), cam_free_f[cam].contiguous(),
+        ids.contiguous(), lm_uv.reshape(-1, 2)[o][:, None].contiguous(),
+        lm_w.reshape(-1)[o][:, None].contiguous(), huber)
+    tc = X.new_zeros((lm_w.numel(), 6)).index_copy_(0, o, out[4])
+    tl = X.new_zeros((lm_w.numel(), 3)).index_copy_(0, o, out[2])
+    return tc, tl
+
+
+def gradient_witness(torch, label, args, kern, plain, exact):
+    """K2's g_cam and g_lm entry by entry: each entry's distance from the
+    plain version run in float64 (``exact``), over the magnitude of its own
+    terms (``_gradient_terms``), for the kernel (``kern``), the f32 plain
+    version (``plain``), and each one's terms summed in float64 (what
+    rounding its terms alone leaves; the kernel's from ``_kernel_terms``);
+    each at most GRAD_TOL of the output.  Logs the kernel's worst entry:
+    its camera or landmark, observations, value and each distance.
+    Returns {output: readings}."""
+    cam, lm, tc, tl, *_ = _gradient_terms(torch, args, torch.float32)
+    *_, mc, ml = _gradient_terms(torch, args, torch.float64)
+    kc, kl = _kernel_terms(torch, args)
+    C, L = args[1].shape[0], args[3].shape[0]
+    live = (args[8].reshape(-1) != 0).double()
+    f64 = dict(dtype=torch.float64, device=live.device)
+    out = {}
+    for name, j, idx, terms, kterms, mag, n in (
+            ("g_cam", 4, cam, tc, kc, mc, C), ("g_lm", 2, lm, tl, kl, ml, L)):
+        def summed(x):
+            return torch.zeros((n, x.shape[1]), **f64).index_add_(
+                0, idx, x.double())
+        scale = summed(mag)
+        n_obs = torch.zeros(n, **f64).index_add_(0, idx, live)
+        ref = exact[j]
+        dist = {k: (v.double() - ref).abs() / scale.clamp(min=1e-30)
+                for k, v in (("kernel", kern[j]), ("f32 plain", plain[j]),
+                             ("kernel terms", summed(kterms)),
+                             ("f32 terms", summed(terms)))}
+        e, c = divmod(int(torch.argmax(dist["kernel"])), terms.shape[1])
+        r = dict(entry=(e, c), obs=int(n_obs[e]), value=float(ref[e, c]),
+                 scale=float(scale[e, c]), largest=float(ref.abs().max()),
+                 max={k: float(v.max()) for k, v in dist.items()},
+                 abs_at_worst={k: float(v[e, c] * scale[e, c])
+                               for k, v in dist.items()})
+        out[name] = r
+        log(f"  {name} {label}: distance from f64 over the entry's own term "
+            f"magnitude, max (kernel / f32 plain / kernel terms and f32 terms"
+            f" summed in f64) "
+            + " / ".join(f"{v:.2e}" for v in r["max"].values())
+            + f" (tolerance {GRAD_TOL[name]:.2e}); the kernel's worst entry "
+            f"[{e}, {c}] ({r['obs']} observations): value {r['value']:.4e}, "
+            f"term magnitude {r['scale']:.4e} (largest entry "
+            f"{r['largest']:.4e}), distance "
+            + " / ".join(f"{v:.3e}" for v in r["abs_at_worst"].values()))
+    bad = {k: v["max"] for k, v in out.items()
+           if not max(v["max"].values()) <= GRAD_TOL[k]}
+    if bad:
+        raise AssertionError(f"ba_linearize {label}: gradient entries "
+                             f"farther from f64 than {GRAD_TOL} of their "
+                             f"term magnitude: {bad}")
+    return out
+
+
+def ba_kernel_rows(torch, label, args, cs, timed_shape,
+                   names=("ba_linearize", "schur_apply", "schur_gather",
+                          "schur_scatter"), witness=False):
+    """K2 and the K3 modes of ``names`` against their plain versions on
+    one problem: ``args`` are K2's (K, R, t, xyz, lm_free_f, cam_free_f,
+    lm_cam, lm_uv, lm_w, Huber delta), ``cs`` the table's camera_slots;
+    K3 runs on the plain K2's W, V (damped at 1e-3) and g_lm with a random
+    x.  Each kernel is run twice and must give the same bits, and be
+    within BA_REL_TOL of the largest entry of the plain output; or, with
+    ``witness`` (a scan's own problems: near a converged map the
+    gradients are sums of much larger terms that cancel, so both f32
+    versions' errors are the rounding of the residuals, up to 4% of the
+    largest entry of g_lm in a mapping pass), no farther from the plain
+    version run in float64 than twice the f32 plain version's distance,
+    in root mean square over the output's entries, plus 1e-6 of its
+    largest entry; and K2's g_cam and g_lm also entry by entry, each
+    within GRAD_TOL of its own term magnitude (``gradient_witness``).  With
+    ``timed_shape`` each is timed with torch.profiler beside its bound and
+    the earlier design's time.  Returns {name: row}."""
+    from sfm_tpu_torch.ba import linearize_pallas as lp
+    from sfm_tpu_torch.ba import schur_pallas as sp
+    C = args[1].shape[0]
+    lm_cam, lm_w = args[6], args[8]
+    rows = {}
+
+    def to_largest(a, ref, rms=False):
+        ref = ref.double()
+        d = (a.double() - ref).abs()
+        d = d.pow(2).mean().sqrt() if rms else d.max()
+        return float(d) / max(float(ref.abs().max()), 1e-30)
+
+    def check(name, kern, plain, plain64):
+        a, b = kern(), plain()
+        sync(torch, lm_cam.device)
+        if witness:
+            c = plain64()
+            errs = [(float((u.double() - v.double()).abs().max()),
+                     to_largest(u, v)) for u, v in zip(a, b)]
+            far = [(to_largest(u, w, True), to_largest(v, w, True))
+                   for u, v, w in zip(a, b, c)]
+            if not all(k <= 2 * p + 1e-6 for k, p in far):
+                raise AssertionError(f"{name} {label}: rms from the f64 "
+                                     f"plain version (kernel, f32 plain) "
+                                     f"{far}")
+            if name == "ba_linearize":
+                grad = gradient_witness(torch, label, args, a, b, c)
+        else:
+            errs = [_rel_err(u, v) for u, v in zip(a, b)]
+        err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        again = kern()
+        same = all(torch.equal(u, v) for u, v in zip(a, again))
+        if not same:
+            raise AssertionError(f"{name} {label}: two launches differ")
+        row = dict(shape=label, max_abs_err=err, max_rel_err=rel,
+                   bit_identical=same, library_ms=None,
+                   **ba_bound(name, lm_cam, lm_w, C))
+        msg = (f"{name} {label}: max abs err {err:.3e} (rel {rel:.3e}"
+               f"{'; ' + ' '.join(f'{e[1]:.1e}' for e in errs) if len(errs) > 2 else ''}"
+               f"), rerun bit-identical")
+        if witness:
+            row["from_f64"] = far
+            if name == "ba_linearize":
+                row["gradients"] = grad
+            msg += ("; rms from the f64 plain version, kernel / f32 plain: "
+                    + " ".join(f"{k:.1e}/{p:.1e}" for k, p in far))
+        if timed_shape:
+            row.update(timed(torch, plain, kern))
+            prev = EARLIER_US.get((name, label.split()[0]))
+            row["earlier_design_us"] = prev
+            msg += (f"; kernel {us(row['ms'])} device (earlier design: "
+                    f"{prev} us; {row['event_ms']:.4f} ms events), plain "
+                    f"{us(row['plain_ms'])} device; bound "
+                    f"{us(row['bound_ms'])} ({row['bound_by']})"
+                    f"{share(row['bound_ms'], row['ms'])}; by kernel "
+                    + ", ".join(f"{k} {1e3 * v:.2f} us"
+                                for k, v in row["parts_ms"].items()))
+        rows[name] = row
+        log(msg)
+
+    check("ba_linearize", lambda: lp.ba_linearize_kernel(*args, slots=cs),
+          lambda: lp.ba_linearize_plain(*args),
+          lambda: lp.ba_linearize_plain(*_to_f64(torch, *args)))
+    W, V, g_lm = lp.ba_linearize_plain(*args)[:3]
+    Vinv = lp.damped_vinv(V, 1e-3)
+    x = torch.as_tensor(np.random.default_rng(1).normal(0, 1, (C, 6)),
+                        dtype=torch.float32, device=W.device)
+    z_ref = sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x)
+    W64, Vinv64, g64, x64, z64 = _to_f64(torch, W, Vinv, g_lm, x, z_ref)
+    cases = {
+        "schur_apply": (
+            lambda: sp.schur_kernel("full", lm_cam, W, Vinv, g_lm, x,
+                                    slots=cs),
+            lambda: sp.schur_apply_fused_plain(lm_cam, W, Vinv, g_lm, x, C),
+            lambda: sp.schur_apply_fused_plain(lm_cam, W64, Vinv64, g64,
+                                               x64, C)),
+        "schur_gather": (
+            lambda: (sp.schur_kernel("gather", lm_cam, W, Vinv, g_lm, x),),
+            lambda: (sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x),),
+            lambda: (sp.schur_gather_plain(lm_cam, W64, Vinv64, g64, x64),)),
+        "schur_scatter": (
+            lambda: (sp.schur_kernel("scatter", lm_cam, W, z=z_ref,
+                                     n_cams=C, slots=cs),),
+            lambda: (sp.schur_scatter_plain(lm_cam, W, z_ref, C),),
+            lambda: (sp.schur_scatter_plain(lm_cam, W64, z64, C),))}
+    for name in names[1:]:
+        check(name, *cases[name])
+    return rows
+
+
 def check_ba_kernels(torch, dev):
     """K2 and the three K3 modes against their plain versions at the
     flagship's mapping-BA shape (32 cameras, 2048 landmark rows of which
     the first 20% are live, as after compaction on the scan's map; kmax 8,
     Huber 2.0, free masks), at bench_ba.py's (1000, 100k, 6) and, for
     equality only, at bench_ba's layout with 4096 cameras (above the camera
-    caps of the earlier shared-memory design).  Each kernel is run twice and
-    must give the same bits; each is timed with torch.profiler beside its
-    bound and the earlier design's time."""
-    from sfm_tpu_torch.ba import linearize_pallas as lp
-    from sfm_tpu_torch.ba import schur_pallas as sp
+    caps of the earlier shared-memory design), with ``ba_kernel_rows``."""
     from sfm_tpu_torch.ba.large import camera_slots
     from sfm_tpu_torch.geometry.rotations import exp_so3
 
@@ -632,37 +894,6 @@ def check_ba_kernels(torch, dev):
                0.0, False, {}, False))
     per = {k: [] for k in ("ba_linearize", "schur_apply", "schur_gather",
                            "schur_scatter")}
-
-    def check(name, label, kern, plain, tb, C, timed_shape):
-        a, b = kern(), plain()
-        torch.cuda.synchronize()
-        errs = [_rel_err(u, v) for u, v in zip(a, b)]
-        err = max(e[0] for e in errs)
-        rel = max(e[1] for e in errs)
-        again = kern()
-        same = all(torch.equal(u, v) for u, v in zip(a, again))
-        if not same:
-            raise AssertionError(f"{name} {label}: two launches differ")
-        row = dict(shape=label, max_abs_err=err, max_rel_err=rel,
-                   bit_identical=same, library_ms=None,
-                   **ba_bound(name, tb, C))
-        msg = (f"{name} {label}: max abs err {err:.3e} (rel {rel:.3e}"
-               f"{'; ' + ' '.join(f'{e[1]:.1e}' for e in errs) if len(errs) > 2 else ''}"
-               f"), rerun bit-identical")
-        if timed_shape:
-            row.update(timed(torch, plain, kern))
-            prev = EARLIER_US.get((name, label.split()[0]))
-            row["earlier_design_us"] = prev
-            msg += (f"; kernel {us(row['ms'])} device (earlier design: "
-                    f"{prev} us; {row['event_ms']:.4f} ms events), plain "
-                    f"{us(row['plain_ms'])} device; bound "
-                    f"{us(row['bound_ms'])} ({row['bound_by']})"
-                    f"{share(row['bound_ms'], row['ms'])}; by kernel "
-                    + ", ".join(f"{k} {1e3 * v:.2f} us"
-                                for k, v in row["parts_ms"].items()))
-        per[name].append(row)
-        log(msg)
-
     for label, C, L, kmax, huber, mask, extra, timed_shape in shapes:
         pr = ba_problem(torch, dev, C, L, kmax, **extra)
         tb = pr["tables"]
@@ -674,31 +905,9 @@ def check_ba_kernels(torch, dev):
                 lm_free, pr["cam_free"].float(), tb.lm_cam, tb.lm_uv,
                 tb.lm_w, huber)
         log(f"[BA kernels] {label}: {pr['n_obs']} observations")
-        check("ba_linearize", label,
-              lambda: lp.ba_linearize_kernel(*args, slots=cs),
-              lambda: lp.ba_linearize_plain(*args), tb, C, timed_shape)
-
-        W, V, g_lm = lp.ba_linearize_plain(*args)[:3]
-        Vinv = lp.damped_vinv(V, 1e-3)
-        x = torch.as_tensor(np.random.default_rng(1).normal(0, 1, (C, 6)),
-                            dtype=torch.float32, device=dev)
-        lm_cam = tb.lm_cam
-        z_ref = sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x)
-        cases = (
-            ("schur_apply",
-             lambda: sp.schur_kernel("full", lm_cam, W, Vinv, g_lm, x,
-                                     slots=cs),
-             lambda: sp.schur_apply_fused_plain(lm_cam, W, Vinv, g_lm, x,
-                                                C)),
-            ("schur_gather",
-             lambda: (sp.schur_kernel("gather", lm_cam, W, Vinv, g_lm, x),),
-             lambda: (sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x),)),
-            ("schur_scatter",
-             lambda: (sp.schur_kernel("scatter", lm_cam, W, z=z_ref,
-                                      n_cams=C, slots=cs),),
-             lambda: (sp.schur_scatter_plain(lm_cam, W, z_ref, C),)))
-        for name, kern, plain in cases:
-            check(name, label, kern, plain, tb, C, timed_shape)
+        for name, row in ba_kernel_rows(torch, label, args, cs,
+                                        timed_shape).items():
+            per[name].append(row)
     # the kernels line carries the main path's (flagship) shape
     return {k: dict(v[0], per_shape=v) for k, v in per.items()}
 
@@ -814,16 +1023,16 @@ def count_k1_sites(native, record=None):
     return sites, restore
 
 
-def k1_by_site(torch, calls):
-    """K1 on the FLAGSHIP scan's own calls (``calls``: (site, kernel
-    arguments) as ``count_k1_sites`` recorded them), replayed after the
-    scan, grouped by call site and route.  Each call is held bit for bit
-    against the plain version.  Per group: the calls, the device us per
-    call (every device op of the calls under torch.profiler, exactly three
-    a call), the bound (``k1_bound``, mean over the calls), the device us
-    a call takes on the route the rule did not pick where the window
-    admits both, and launches x (us - bound), the device time the group
-    loses per scan."""
+def k1_by_site(torch, calls, scan="FLAGSHIP"):
+    """K1 on a scan's own calls (``calls``: (site, kernel arguments) as
+    ``count_k1_sites`` recorded them), replayed after the scan, grouped by
+    call site and route.  Each call is held bit for bit against the plain
+    version.  Per group: the calls, the device us per call (every device
+    op of the calls under torch.profiler, exactly three a call) and the
+    plain version's, the bound (``k1_bound``, mean over the calls), the
+    device us a call takes on the route the rule did not pick where the
+    window admits both, and launches x (us - bound), the device time the
+    group loses per scan."""
     from sfm_tpu_torch.features import match_pallas as mp
     groups = {}
     for site, args in calls:
@@ -832,28 +1041,54 @@ def k1_by_site(torch, calls):
     out = {}
     for (site, route), group in groups.items():
         label = f"{site} [{route}]"
+        refs = [mp.match_result_plain(*args) for args in group]
 
         def check(what):
-            for args in group:
-                for x, y in zip(mp.match_result_kernel(*args),
-                                mp.match_result_plain(*args)):
+            for args, ref in zip(group, refs):
+                for x, y in zip(mp.match_result_kernel(*args), ref):
                     if not torch.equal(x, y):
-                        raise AssertionError(f"K1 {label}: {what} differs "
-                                             f"from the plain version")
+                        raise AssertionError(f"K1 {scan} {label}: {what} "
+                                             f"differs from the plain version")
 
-        def run(group=group):
-            for args in group:
-                mp.match_result_kernel(*args)
+        def total_ms(fn, kernel=True, group=group):
+            """Device ms of ``fn`` over every call of the group, profiled
+            K1_REPLAY_BATCH calls a session.  For the kernel: the sum over
+            its K1_MAX_OPS device ops of each op's mean time, times the
+            calls, from sessions that recorded each op once a call, or
+            all but one op of the session (the profiler drops one now and
+            then in a session of long calls: 767 of 768 in every session
+            at the long scan's widen); None where a batch had no such
+            session.  For the plain version, one pass per session."""
+            tot = 0.0
+            for i in range(0, len(group), K1_REPLAY_BATCH):
+                part = group[i:i + K1_REPLAY_BATCH]
+                m, parts, per = len(part), {}, {}
+                reps, want = (2 if kernel else 1), K1_MAX_OPS * m
+                ms = device_ms(
+                    torch, lambda part=part: [fn(*a) for a in part],
+                    reps=reps, by_kernel=parts, counts=per,
+                    ops_ok=(lambda c, want=want, reps=reps:
+                            0 <= (want - c) * reps <= 1) if kernel
+                    else float.is_integer)
+                if ms is None or (kernel and (len(parts) != K1_MAX_OPS
+                                              or min(per.values()) < m - 1)):
+                    return None
+                tot += m * sum(parts[k] / per[k] for k in parts) \
+                    if kernel else ms
+            return tot
         n = len(group)
         check("the kernel")
-        ms = device_ms(torch, run, reps=5,
-                       ops_ok=lambda c, n=n: c == K1_MAX_OPS * n)
-        if ms is None:
-            raise AssertionError(f"K1 {label}: no whole profiler session")
-        bound_us = 1e3 * float(np.mean([k1_bound(torch, a)["bound_ms"]
-                                        for a in group]))
+        ms = total_ms(mp.match_result_kernel)
+        plain = total_ms(mp.match_result_plain, kernel=False)
+        if ms is None or plain is None:
+            raise AssertionError(f"K1 {scan} {label}: no whole profiler "
+                                 f"session")
+        bounds = [k1_bound(torch, a) for a in group]
+        bound_us = 1e3 * float(np.mean([b["bound_ms"] for b in bounds]))
+        by = [b["bound_by"] for b in bounds]
         row = dict(site=site, route=route, calls=n, us=1e3 * ms / n,
-                   bound_us=bound_us,
+                   plain_us=1e3 * plain / n, bound_us=bound_us,
+                   bound_by=max(set(by), key=by.count),
                    lost_ms=n * (1e3 * ms / n - bound_us) / 1e3,
                    shapes=sorted({f"{a[0].shape[0]}x{a[0].shape[1]}x"
                                   f"{a[3].shape[1]}" for a in group}),
@@ -864,16 +1099,16 @@ def k1_by_site(torch, calls):
             other = "dense_int" if route == "cells" else "cells"
             with k1_route_forced(mp, other):
                 check(f"the {other} route")
-                o = device_ms(torch, run, reps=5,
-                              ops_ok=lambda c, n=n: c == K1_MAX_OPS * n)
+                o = total_ms(mp.match_result_kernel)
             row.update(other_route=other,
                        other_route_us=None if o is None else 1e3 * o / n)
             msg = f"; the {other} route {us(o and o / n)}"
         out[label] = row
-        log(f"K1 on the FLAGSHIP scan's calls, {label}: {n} calls "
+        log(f"K1 on the {scan} scan's calls, {label}: {n} calls "
             f"{row['shapes']} radius {row['max_r']}, exact, {us(ms / n)} "
-            f"device per call{msg}; bound {row['bound_us']:.2f} us; lost per "
-            f"scan {row['lost_ms']:.4f} ms")
+            f"device per call{msg}; plain {us(plain / n)}; bound "
+            f"{row['bound_us']:.2f} us ({row['bound_by']}); lost per scan "
+            f"{row['lost_ms']:.4f} ms")
     return out
 
 
@@ -1108,6 +1343,393 @@ def time_flow(torch, dev, cfg, K=K):
     return ms
 
 
+# the longscan phase: frames fed (benchmarks/bench_longscan.py feeds
+# 2048), the keyframes it must insert, the BA kernels every global BA call
+# must launch, and the processes that render its frames ahead of the engine
+LONGSCAN_FRAMES = 1024
+LONGSCAN_MIN_KEYFRAMES = 64
+GLOBAL_BA_KERNELS = ("ba_linearize", "schur_apply", "schur_gather")
+RENDER_WORKERS = 3
+# the long scan's last chunks, fed again from the state before them under
+# torch.profiler for the card's busy share
+TAIL_CHUNKS = 2
+_RENDER = {}
+
+
+def _render_init(n_frames, K, H, W):
+    from sfm_tpu_torch.synthetic import longscan_scene
+    _RENDER.update(scene=longscan_scene(n_frames), K=K, H=H, W=W)
+
+
+def _render_chunk(lo, hi):
+    scene, rv, tv = _RENDER["scene"]
+    return np.stack([scene.render(_RENDER["K"], rv[i], tv[i], _RENDER["H"],
+                                  _RENDER["W"]) for i in range(lo, hi)])
+
+
+def rendered_chunks(n_frames, chunk, K, H, W, workers):
+    """The long scan's frames, chunk by chunk, each rendered shortly before
+    it is fed: by ``workers`` processes at most 8 chunks ahead, or here
+    when ``workers`` is 0.  The processes end with the generator."""
+    spans = [(lo, min(lo + chunk, n_frames))
+             for lo in range(0, n_frames, chunk)]
+    if workers == 0:
+        _render_init(n_frames, K, H, W)
+        for lo, hi in spans:
+            yield _render_chunk(lo, hi)
+        return
+    import collections
+    import itertools
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(workers,
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_render_init,
+                             initargs=(n_frames, K, H, W)) as pool:
+        todo = iter(spans)
+        pending = collections.deque(
+            pool.submit(_render_chunk, *span)
+            for span in itertools.islice(todo, 8))
+        while pending:
+            frames = pending.popleft().result()
+            span = next(todo, None)
+            if span is not None:
+                pending.append(pool.submit(_render_chunk, *span))
+            yield frames
+
+
+def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
+                 K=K, n_frames=LONGSCAN_FRAMES,
+                 min_keyframes=LONGSCAN_MIN_KEYFRAMES,
+                 workers=RENDER_WORKERS, k1_calls=None):
+    """The long scan: ``add_frames`` in chunks of keyframe_time_lag over the
+    serpentine sweep of ``synthetic.longscan_scene`` (benchmarks/
+    bench_longscan.py's scene), with periodic global BA, ended by two
+    ``global_ba`` calls as bench_longscan ends.  The time splits into
+    tracking, mapping passes and global BA calls (``PhaseTimer``, the host
+    clock around synchronised calls); each global BA call's launches are
+    counted.  Checks: RUNNING on >= 95% of the post-bootstrap frames, >=
+    ``min_keyframes`` keyframes inserted, exactly one periodic global BA
+    per global_ba_every insertions, no global BA call raising the cost,
+    ``gba_kernels`` launched in every global BA call and ``kernels`` by the
+    phase, and the sim(3) keyframe ATE after the final global BA under 2%
+    of the trajectory's extent (its largest coordinate range, as
+    bench_longscan measures it).  K1's launches are also counted per call
+    site, and its calls recorded into the list ``k1_calls`` when given
+    (copies on the device: the peak memory is then read per chunk, less
+    the copies held when the chunk began).  Returns the numbers, and under
+    "keep"
+    (for ``longscan_device``) the state before the final global BA calls,
+    the arguments of the first K2 call of the last mapping pass and of the
+    last periodic global BA call, the engine, and the state before the
+    last TAIL_CHUNKS chunks with their frames."""
+    import importlib
+
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.ba.large import CameraSlots
+    from sfm_tpu_torch.engine import SfMEngine
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    from sfm_tpu_torch.synthetic import longscan_scene, umeyama_ate
+    from sfm_tpu_torch.utils import PhaseTimer
+    step = importlib.import_module("sfm_tpu_torch.engine.step")
+    large = importlib.import_module("sfm_tpu_torch.ba.large")
+
+    label = "longscan"
+    H, W = cfg.image_size
+    chunk = cfg.keyframe_time_lag
+    n_frames -= n_frames % chunk
+    _, rvecs, tvecs = longscan_scene(n_frames)
+    eng = SfMEngine(K, (H, W), config=cfg, device=dev, seed=0)
+    timer = PhaseTimer()
+    recorded, current, fed = {}, [None], [0]
+    gba, map_launches = [], {k: 0 for k in native.LAUNCHES}
+    real_lin, real_map, real_gba = (large.ba_linearize,
+                                    step.run_pending_mapping, eng.global_ba)
+
+    def copy(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def linearize(*a, **kw):
+        if current[0] is not None:
+            recorded[current[0]] = (tuple(map(copy, a)),
+                                    CameraSlots(*map(copy, kw["slots"])))
+            current[0] = None
+        return real_lin(*a, **kw)
+
+    def mapping(cfg, cam, state):
+        if int(state.pending_map_slot) < 0:     # no keyframe: a no-op
+            return real_map(cfg, cam, state)
+        sync(torch, dev)
+        n0 = dict(native.LAUNCHES)
+        with timer.phase("mapping pass"):
+            current[0] = "mapping"
+            out = real_map(cfg, cam, state)
+            sync(torch, dev)
+        current[0] = None
+        for k in map_launches:
+            map_launches[k] += native.LAUNCHES[k] - n0[k]
+        return out
+
+    def global_ba():
+        sync(torch, dev)
+        n0 = dict(native.LAUNCHES)
+        t0 = time.perf_counter()
+        with timer.phase("global BA"):
+            # the periodic calls' problems are recorded: the final calls
+            # start at a converged map, where the gradients are f32 noise
+            current[0] = "global" if fed[0] < n_frames else None
+            out = real_gba()
+            sync(torch, dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        current[0] = None
+        launches = {k: native.LAUNCHES[k] - n0[k] for k in n0}
+        n_lin = launches["ba_linearize"]
+        call = dict(after_frame=fed[0], ms=ms, launches=launches,
+                    lm_iterations=n_lin - 1 if n_lin else None,
+                    **{k: float(v) for k, v in out.items()})
+        gba.append(call)
+        log(f"[{label}] global BA after frame {fed[0]}: cost "
+            f"{call['initial_cost']:.6e} -> {call['final_cost']:.6e}, "
+            f"{int(call['accepted'])} accepted, dropped_obs "
+            f"{int(call['dropped_obs'])}, {ms:.3f} ms on the host clock"
+            + (f" ({ms / (n_lin - 1):.3f} ms per LM iteration)"
+               if n_lin > 1 else "")
+            + f", launches {dict((k, v) for k, v in launches.items() if v)}")
+        return out
+
+    cuda = torch.device(dev).type == "cuda"
+    # the engine's peak memory: per chunk, the peak less the recorded K1
+    # copies held when the chunk began (they only grow)
+    mem = dict(peak=0, held=0, counted=0, slack=0)
+
+    def held_bytes():
+        for _, a in (k1_calls or [])[mem["counted"]:]:
+            mem["held"] += sum(x.untyped_storage().nbytes() for x in a
+                               if torch.is_tensor(x))
+        mem["counted"] = len(k1_calls or [])
+        return mem["held"]
+
+    @contextlib.contextmanager
+    def peak_memory():
+        if not cuda:
+            yield
+            return
+        held0 = held_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        yield
+        mem["peak"] = max(mem["peak"], torch.cuda.max_memory_allocated()
+                          - held0)
+        mem["slack"] = max(mem["slack"], held_bytes() - held0)
+
+    eng.global_ba = global_ba
+    step.run_pending_mapping = mapping
+    large.ba_linearize = linearize
+    k1_sites, restore_k1 = count_k1_sites(native, k1_calls)
+    # the state before the last chunks and their frames, which
+    # longscan_device feeds again under torch.profiler
+    tail_from = len(range(0, n_frames, chunk)) - TAIL_CHUNKS
+    tail = dict(frames=[], s=0.0)
+    metrics, steady_s, first_s = [], 0.0, 0.0
+    try:
+        native.reset_launch_counts()
+        for i, frames in enumerate(rendered_chunks(n_frames, chunk, K, H, W,
+                                                   workers)):
+            if i == tail_from:
+                tail.update(state=eng.state, since=eng._kfs_since_global_ba)
+            imgs = torch.as_tensor(frames, device=dev)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            with timer.phase("add_frames"), peak_memory():
+                metrics += eng.add_frames(imgs)     # fetches: synced
+            dt = time.perf_counter() - t0
+            if i:
+                steady_s += dt
+            else:
+                first_s = dt
+            if i >= tail_from:
+                tail["frames"].append(frames)
+                tail["s"] += dt
+            fed[0] += len(frames)
+            if fed[0] % 128 == 0:
+                st = np.array([int(m["status"]) for m in metrics[-128:]])
+                log(f"[{label}] frame {fed[0]}: RUNNING {(st == 1).mean():.1%}"
+                    f" of the last 128, {int(eng.state.kfs.valid.sum())} "
+                    f"keyframes, {int(eng.state.lms.valid.sum())} landmarks,"
+                    f" {steady_s:.1f} s in the engine")
+        n_periodic = len(gba)
+        kept_state = eng.state
+        for _ in range(2):
+            with peak_memory():
+                eng.global_ba()
+        launches = dict(native.LAUNCHES)
+    finally:
+        restore_k1()
+        step.run_pending_mapping = real_map
+        large.ba_linearize = real_lin
+        eng.global_ba = real_gba
+
+    status = np.array([int(m["status"]) for m in metrics])
+    boot = int(np.argmax(status == 1)) if (status == 1).any() else None
+    if boot is None:
+        raise AssertionError(f"{label}: the scan never bootstrapped")
+    running = float((status[boot + 1:] == 1).mean())
+    inserted = int(sum(int(m["keyframe_added"]) for m in metrics))
+    kfs = eng.state.kfs
+    valid = kfs.valid.cpu().numpy()
+    fns = kfs.frames.frame_no.cpu().numpy()[valid]
+    rv = kfs.frames.rvec.cpu().numpy()[valid]
+    tv = kfs.frames.tvec.cpu().numpy()[valid]
+    order = np.argsort(fns)
+    est_c = np.stack([-rodrigues_np(rv[i]).T @ tv[i] for i in order])
+    gt_c = np.stack([-rodrigues_np(rvecs[f]).T @ tvecs[f]
+                     for f in fns[order]])
+    ate = umeyama_ate(est_c, gt_c)
+    extent = float(np.ptp(gt_c, axis=0).max())
+    pts, _ = eng.get_reconstruction()
+    summ = timer.summary()
+    tot = {k: summ.get(k, {}).get("total_s", 0.0)
+           for k in ("add_frames", "mapping pass", "global BA")}
+    periodic_s = sum(c["ms"] for c in gba[:n_periodic]) / 1e3
+    split = {"tracking": tot["add_frames"] - tot["mapping pass"]
+             - periodic_s, "mapping passes": tot["mapping pass"],
+             "global BA (periodic)": periodic_s,
+             "global BA (final two)": tot["global BA"] - periodic_s}
+    per_iter = [c["ms"] / c["lm_iterations"] for c in gba
+                if c["lm_iterations"]]
+    fps = (n_frames - chunk) / steady_s
+    peak = mem["peak"] if cuda else None
+    log(f"[{label}] {n_frames} frames; bootstrap on frame {boot}; "
+        f"{running:.1%} of later frames RUNNING; {inserted} keyframes "
+        f"inserted, {int(valid.sum())} live; {len(pts)} landmarks; "
+        f"{n_periodic} periodic global BA calls; ATE {ate:.5f} over extent "
+        f"{extent:.3f} ({100 * ate / extent:.3f}%); launches {launches}; K1 "
+        f"launches by call site {k1_sites}")
+    log(f"[{label}] first chunk {first_s:.3f} s; amortised {fps:.3f} "
+        f"frames/s over frames {chunk}-{n_frames - 1}; split (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" ({timer.counts['mapping pass']} mapping passes); global BA "
+        f"{np.mean(per_iter) if per_iter else float('nan'):.3f} ms per LM "
+        f"iteration on the host clock (mean of {len(per_iter)} calls); "
+        f"max_memory_allocated {peak} B (less the recorded K1 copies; at "
+        f"most {mem['slack']} B of them were made during one chunk)")
+    log(timer.report())
+    checks = {
+        "post-bootstrap frames RUNNING >= 95%": running >= 0.95,
+        f"keyframes inserted >= {min_keyframes}": inserted >= min_keyframes,
+        "one periodic global BA per global_ba_every insertions":
+            n_periodic == inserted // cfg.global_ba_every,
+        "every global BA: finite final_cost <= initial_cost": all(
+            np.isfinite(c["final_cost"])
+            and c["final_cost"] <= c["initial_cost"] for c in gba),
+        "sim(3) keyframe ATE < 2% of extent": ate < 0.02 * extent,
+        "landmarks finite": len(pts) > 0 and bool(np.isfinite(pts).all()),
+    }
+    for name in gba_kernels:
+        checks[f"{name} launched in every global BA call"] = all(
+            c["launches"][name] > 0 for c in gba)
+    for name in kernels:
+        checks[f"{name} launched by the phase"] = launches[name] > 0
+    run_checks(label, checks)
+    return dict(
+        frames=n_frames, fps=fps, first_chunk_s=first_s,
+        running=running, bootstrap_frame=boot, keyframes_inserted=inserted,
+        keyframes_live=int(valid.sum()), landmarks=len(pts),
+        ate_pct=100 * ate / extent, extent=extent, split_s=split,
+        mapping_passes=timer.counts["mapping pass"],
+        global_ba_calls=gba, periodic_global_ba_calls=n_periodic,
+        global_ba_host_ms_per_lm_iter=float(np.mean(per_iter))
+        if per_iter else None, max_memory_allocated=peak,
+        max_memory_slack=mem["slack"] if cuda else None,
+        launches=launches, mapping_launches=map_launches, k1_sites=k1_sites,
+        keep=dict(state=kept_state, cam=eng.cam, recorded=recorded,
+                  engine=eng, tail=tail))
+
+
+def longscan_device(torch, cfg, out):
+    """After the profiled kernel checks: global BA on the long scan's state
+    before its final calls, once on the host clock (its LM iterations
+    counted by K2's launches) and once under torch.profiler (device ms per
+    LM iteration, by kernel); then K2, K3 full and K3-gather against their
+    plain versions, and timed, on the arguments of the scan's last
+    mapping-pass BA and periodic global BA (``ba_kernel_rows``), with their
+    launches per global BA call; last, the long scan's last TAIL_CHUNKS
+    chunks fed again from the state before them, under torch.profiler:
+    the card's busy share."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.engine.global_ba import run_global_ba
+    keep = out.pop("keep")
+
+    def once():
+        return run_global_ba(cfg, keep["cam"], keep["state"])
+    once()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    once()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    n_iter = native.LAUNCHES["ba_linearize"] - 1
+    parts = {}
+    dev_ms_call = device_ms(torch, once, 1, parts) or float("nan")
+    ba = {k: v / n_iter for k, v in parts.items()
+          if k.startswith(("landmark_phase", "camera_phase"))}
+    res = dict(lm_iterations=n_iter, host_ms_per_lm_iter=host_ms / n_iter,
+               device_ms_per_lm_iter=dev_ms_call / n_iter,
+               ba_kernels_ms_per_lm_iter=ba)
+    log(f"[longscan] global BA on the state before the final calls: "
+        f"{n_iter} LM iterations, {host_ms / n_iter:.3f} ms per LM iteration "
+        f"on the host clock, {dev_ms_call / n_iter:.3f} ms on the device, of "
+        f"which the K2 / K3 phases {sum(ba.values()):.3f} ms ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in ba.items()) + ")")
+    periodic = out["global_ba_calls"][:out["periodic_global_ba_calls"]]
+    rows = {}
+    for key in ("global", "mapping"):
+        args, cs = keep["recorded"][key]
+        C = args[1].shape[0]
+        L, kmax = args[6].shape
+        live = float((args[8] != 0).float().mean())
+        label = f"{key} C={C} L={L} kmax={kmax} ({live:.1%} live slots)"
+        log(f"[BA kernels] {label}")
+        for name, row in ba_kernel_rows(torch, label, args, cs, True,
+                                        GLOBAL_BA_KERNELS,
+                                        witness=True).items():
+            if key == "global":
+                row["launches"] = sum(c["launches"][name]
+                                      for c in out["global_ba_calls"])
+                row["launches_per_global_ba"] = float(np.mean(
+                    [c["launches"][name] for c in periodic]))
+            else:
+                row["launches"] = out["mapping_launches"][name]
+                row["launches_per_mapping_pass"] = \
+                    row["launches"] / out["mapping_passes"]
+            rows[(name, key)] = row
+    res["rows"] = rows
+    # last, as the other profiled parts: the long scan's last chunks fed
+    # again from the state before them, under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+    eng, tail = keep["engine"], keep["tail"]
+    eng.state, eng._kfs_since_global_ba = tail["state"], tail["since"]
+    imgs = [torch.as_tensor(f, device="cuda") for f in tail["frames"]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in imgs:
+            eng.add_frames(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages()) / 1e6
+    n = sum(len(f) for f in tail["frames"])
+    res.update(tail_frames=n, tail_busy_s=busy, tail_profiled_s=wall,
+               tail_scan_s=tail["s"])
+    log(f"[longscan] the last {n} frames fed again from the state before "
+        f"them under torch.profiler: {wall:.3f} s, the card busy {busy:.3f} s"
+        f" ({busy / wall:.1%}; {busy / tail['s']:.1%} of the {tail['s']:.3f}"
+        f" s the same frames took in the scan)")
+    return res
+
+
 CLI_CAPS = dict(max_keypoints=512, max_keyframes=32, max_landmarks=8192)
 
 
@@ -1126,7 +1748,7 @@ def run_cli(torch, dev, H=480, W=640, K=K, n=24, resume_frames=8,
     from sfm_tpu_torch.config import SfMConfig
     from sfm_tpu_torch.engine import METRIC_FIELDS, RUNNING
     from sfm_tpu_torch.io import NativeY4MSource, Y4MSource, load_state
-    from sfm_tpu_torch.io import read_ply
+    from sfm_tpu_torch.io import read_ply, runtime
     from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
 
     scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
@@ -1143,6 +1765,9 @@ def run_cli(torch, dev, H=480, W=640, K=K, n=24, resume_frames=8,
                str(K[0, 2]), "--cy", str(K[1, 2]), "--device", str(dev)]
         for k, v in caps.items():
             cam += ["--" + k.replace("_", "-"), str(v)]
+        # the C++ runtime (PLY writer, y4m reader) is built at its first
+        # use: here, not inside the timed scan
+        runtime.library()
         t0 = time.perf_counter()
         rc = cli.main(["scan", "--input", p("scan.npy"), "--output",
                        p("a.ply"), "--metrics", p("a.jsonl"),
@@ -1231,7 +1856,7 @@ def main(argv):
     log(f"kernel build: {native.BUILD_INFO['seconds']:.2f} s "
         f"({native.BUILD_INFO['path']})")
     log(native.BUILD_INFO.get("ptxas", ""))
-    from sfm_tpu_torch.config import FLAGSHIP, SLICE, SfMConfig
+    from sfm_tpu_torch.config import FLAGSHIP, LONGSCAN, SLICE, SfMConfig
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
                          MAIN_PATH, k1_calls=k1_calls)
@@ -1243,6 +1868,14 @@ def main(argv):
     flow = run_slice(torch, dev, flow_cfg, "flow", MAIN_PATH, n_frames=30)
     flow["lk_flow_ms"] = time_flow(torch, dev, flow_cfg)
     cli = run_cli(torch, dev)
+    cg = run_slice(torch, dev, SfMConfig(**dict(FLAGSHIP, ba_solver="cg")),
+                   "cg", ("hamming_match", "patch_sampler"), n_frames=40)
+    log(f"[cg] mapping pass {cg['map_ms']:.3f} ms (large "
+        f"{flagship['map_ms']:.3f} ms, dense {dense['map_ms']:.3f} ms)")
+    long_cfg = SfMConfig(**LONGSCAN)
+    long_k1_calls = []
+    longscan = run_longscan(torch, dev, long_cfg, MAIN_PATH,
+                            k1_calls=long_k1_calls)
     # the kernels against their plain versions, with the timings under
     # torch.profiler last: a profiler session leaves the host slower for
     # the host-bound phases after it
@@ -1252,8 +1885,15 @@ def main(argv):
             != flagship["launches"]["hamming_match"]:
         raise AssertionError("K1: the recorded calls are not the scan's "
                              "launches")
+    long_k1 = k1_by_site(torch, long_k1_calls, "LONGSCAN")
+    if sum(r["calls"] for r in long_k1.values()) \
+            != longscan["launches"]["hamming_match"]:
+        raise AssertionError("K1: the recorded calls are not the long "
+                             "scan's launches")
+    del long_k1_calls[:]
     rows.update(check_ba_kernels(torch, dev))
     bench.update(bench_ba_device(torch, bench_once))
+    long_dev = longscan_device(torch, long_cfg, longscan)
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
@@ -1271,6 +1911,35 @@ def main(argv):
             library_ms=r["library_ms"], shape=r["shape"],
             event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
             ops_per_call=r["ops_per_call"]))
+    # the BA kernels again at the long scan's global-BA and mapping shapes;
+    # their launches are the long scan's (inside global BA calls, inside
+    # mapping passes)
+    source = {n: (src, rep) for n, src, rep in KERNEL_ROWS}
+    for (name, _), r in long_dev.pop("rows").items():
+        if r["ms"] is None or r["plain_ms"] is None:
+            raise AssertionError(f"{name} {r['shape']}: torch.profiler "
+                                 f"recorded no device time")
+        kernels.append(dict(
+            name=name, route="cuda", source=source[name][0],
+            replaces=source[name][1], launches=r["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"],
+            event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
+            ops_per_call=r["ops_per_call"],
+            **{k: r[k] for k in ("launches_per_global_ba",
+                                 "launches_per_mapping_pass") if k in r}))
+    # K1 at the long scan's own calls, by call site and route: the
+    # launches are the phase's, the times per call from the replay
+    for label, r in long_k1.items():
+        kernels.append(dict(
+            name="hamming_match", route="cuda", source=source[
+                "hamming_match"][0], replaces=source["hamming_match"][1],
+            launches=r["calls"], max_abs_err=0.0, ms=r["us"] / 1e3,
+            plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
+            bound_by=r["bound_by"], library_ms=None,
+            shape=f"longscan {label} {' '.join(r['shapes'])}"))
+    longscan.update(device=long_dev, k1_by_site=long_k1)
     print(json.dumps({
         "flagship": {k: v for k, v in flagship.items() if k != "launches"},
         "dense": {k: v for k, v in dense.items() if k != "launches"},
@@ -1282,6 +1951,8 @@ def main(argv):
         "k1_lost_ms_per_scan": sum(r["lost_ms"] for r in k1_sites.values()),
         "live": live, "flow": {k: v for k, v in flow.items()
                                if k != "launches"}, "cli": cli,
+        "cg": {k: v for k, v in cg.items() if k != "launches"},
+        "longscan": longscan,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))

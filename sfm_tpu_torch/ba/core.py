@@ -1,14 +1,19 @@
 """Levenberg-Marquardt bundle adjustment with Schur-complement
-elimination of the landmarks (the dense solver, ``ba_solver="dense"``).
+elimination of the landmarks: the dense solver (``run_ba``,
+``ba_solver="dense"``) and the per-observation PCG solver (``run_ba_cg``,
+``ba_solver="cg"``).
 
-The normal-equation blocks U [C, 6, 6], V [L, 3, 3], W [C, L, 6, 3],
-g_cam [C, 6] and g_lm [L, 3] are assembled with ``index_add_`` over the
+``run_ba`` assembles the normal-equation blocks U [C, 6, 6], V [L, 3, 3],
+W [C, L, 6, 3], g_cam [C, 6] and g_lm [L, 3] with ``index_add_`` over the
 COO observation list; the landmark blocks are eliminated, the reduced
 [6C, 6C] camera system is solved densely, and the landmarks are
-back-substituted.  A trial step is assembled at the proposed point, which
-yields its cost (accept / reject) and, when accepted, the next
-linearisation.  On the card ``index_add_`` sums with atomics, so the sums
-(and the iterates) vary in the last bits from run to run."""
+back-substituted.  ``run_ba_cg`` keeps the coupling per observation,
+W_o [O, 6, 3], and solves the reduced system by block-Jacobi PCG (the
+large solver's ``_pcg``) through gathers and ``index_add_``.  In both, a
+trial step is assembled at the proposed point, which yields its cost
+(accept / reject) and, when accepted, the next linearisation.  On the
+card ``index_add_`` sums with atomics, so the sums (and the iterates)
+vary in the last bits from run to run."""
 
 from __future__ import annotations
 
@@ -26,10 +31,16 @@ class BAStats(NamedTuple):
     final_cost: torch.Tensor
     lam: torch.Tensor
     accepted: torch.Tensor
+    # observations that table capacities dropped from this solve (set by
+    # callers that build tables)
+    dropped_obs: int = 0
 
 
-def _assemble(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
-              huber_delta: float):
+def _assemble_cg(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
+                 huber_delta: float):
+    """The normal-equation blocks without the [C, L] coupling: U, V, the
+    per-observation coupling W_o [O, 6, 3], g_cam, g_lm; and the robust
+    cost."""
     C, L = rvec.shape[0], xyz.shape[0]
     r, A, B = residuals_and_jacobians(K, exp_so3(rvec), tvec, xyz, obs)
     w = obs.w * huber_weights(r, huber_delta)
@@ -43,9 +54,19 @@ def _assemble(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
         0, obs.cam_idx, -(At @ rw[:, :, None])[..., 0])
     g_lm = xyz.new_zeros((L, 3)).index_add_(
         0, obs.lm_idx, -(Bt @ rw[:, :, None])[..., 0])
+    return (U, V, At @ B, g_cam, g_lm), robust_cost(r, obs.w, huber_delta)
+
+
+def _assemble(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
+              huber_delta: float):
+    """``_assemble_cg``'s blocks with the coupling summed into
+    W [C, L, 6, 3]."""
+    (U, V, W_o, g_cam, g_lm), cost = _assemble_cg(
+        K, rvec, tvec, xyz, obs, cam_free, lm_free, huber_delta)
+    C, L = rvec.shape[0], xyz.shape[0]
     W = xyz.new_zeros((C * L, 6, 3)).index_add_(
-        0, obs.cam_idx * L + obs.lm_idx, At @ B).reshape(C, L, 6, 3)
-    return (U, V, W, g_cam, g_lm), robust_cost(r, obs.w, huber_delta)
+        0, obs.cam_idx * L + obs.lm_idx, W_o).reshape(C, L, 6, 3)
+    return (U, V, W, g_cam, g_lm), cost
 
 
 def _damp(M, lam):
@@ -76,31 +97,25 @@ def _solve_step(U, V, W, g_cam, g_lm, lam):
     return d_cam, d_lm
 
 
-def run_ba(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
-           iterations: int = 20,
-           lam0: float = 1e-3, lam_up: float = 4.0, lam_down: float = 2.0,
-           huber_delta: float = 0.0, tol: float = 1e-4
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BAStats]:
-    """Dense-Schur LM over structure and poses.  cam_free [C] / lm_free
-    [L] bool masks freeze parameters (gauge, padding).  Stops early once
-    an accepted step lowers the cost by less than ``tol`` relative (one
-    host read per iteration)."""
-    cam_free_f = cam_free.to(torch.float32)
-    lm_free_f = lm_free.to(torch.float32)
-    blocks, cost = _assemble(K, rvec, tvec, xyz, obs, cam_free_f, lm_free_f,
-                             huber_delta)
+def _lm_loop(assemble, step, rvec, tvec, xyz, cam_free_f, lm_free_f, *,
+             iterations: int, lam0: float, lam_up: float, lam_down: float,
+             tol: float):
+    """The LM damping loop shared by ``run_ba`` and ``run_ba_cg``:
+    ``assemble(rvec, tvec, xyz)`` -> (blocks, cost), ``step(blocks, lam)``
+    -> (d_cam, d_lm).  Stops early once an accepted step lowers the cost
+    by less than ``tol`` relative (one host read per iteration)."""
+    blocks, cost = assemble(rvec, tvec, xyz)
     cost0 = cost
     lam = torch.tensor(lam0, dtype=torch.float32, device=xyz.device)
     accepted = torch.zeros((), dtype=torch.int32, device=xyz.device)
     for _ in range(iterations):
-        d_cam, d_lm = _solve_step(*blocks, lam)
+        d_cam, d_lm = step(blocks, lam)
         d_cam = d_cam * cam_free_f[:, None]
         d_lm = d_lm * lm_free_f[:, None]
         rv_new, tv_new = apply_pose_update(rvec, tvec, d_cam[:, :3],
                                            d_cam[:, 3:])
         xyz_new = xyz + d_lm
-        blocks_new, new_cost = _assemble(K, rv_new, tv_new, xyz_new, obs,
-                                         cam_free_f, lm_free_f, huber_delta)
+        blocks_new, new_cost = assemble(rv_new, tv_new, xyz_new)
         ok = (new_cost < cost) & torch.isfinite(new_cost)
         done = ok & (cost - new_cost < tol * torch.clamp(cost, min=1.0))
         rvec = torch.where(ok, rv_new, rvec)
@@ -115,6 +130,74 @@ def run_ba(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
         if bool(done):
             break
     return rvec, tvec, xyz, BAStats(cost0, cost, lam, accepted)
+
+
+def run_ba(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
+           iterations: int = 20,
+           lam0: float = 1e-3, lam_up: float = 4.0, lam_down: float = 2.0,
+           huber_delta: float = 0.0, tol: float = 1e-4
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BAStats]:
+    """Dense-Schur LM over structure and poses.  cam_free [C] / lm_free
+    [L] bool masks freeze parameters (gauge, padding).  Stops early once
+    an accepted step lowers the cost by less than ``tol`` relative (one
+    host read per iteration)."""
+    cam_free_f = cam_free.to(torch.float32)
+    lm_free_f = lm_free.to(torch.float32)
+    return _lm_loop(
+        lambda rv, tv, X: _assemble(K, rv, tv, X, obs, cam_free_f,
+                                    lm_free_f, huber_delta),
+        lambda blocks, lam: _solve_step(*blocks, lam),
+        rvec, tvec, xyz, cam_free_f, lm_free_f, iterations=iterations,
+        lam0=lam0, lam_up=lam_up, lam_down=lam_down, tol=tol)
+
+
+def run_ba_cg(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
+              iterations: int = 20, cg_iterations: int = 15,
+              lam0: float = 1e-3, lam_up: float = 4.0, lam_down: float = 2.0,
+              huber_delta: float = 0.0, tol: float = 1e-4
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BAStats]:
+    """Structure-and-pose LM with the reduced camera system solved by
+    block-Jacobi PCG (``cg_iterations``, the large solver's ``_pcg``)
+    through the per-observation coupling W_o: no [C, L] tensor.  The same
+    contract as ``run_ba``."""
+    from .large import _pcg
+    C, L = rvec.shape[0], xyz.shape[0]
+    cam_idx, lm_idx = obs.cam_idx, obs.lm_idx
+    cam_free_f = cam_free.to(torch.float32)
+    lm_free_f = lm_free.to(torch.float32)
+    eye6 = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
+
+    def step(blocks, lam):
+        U, V, W_o, g_cam, g_lm = blocks
+        Ud = _damp(U, lam)
+        Vinv = _inv(_damp(V, lam))
+
+        def wt_x(x):
+            # t[l] = sum over the observations of l of W_o^T x[cam_o]
+            q = (x[cam_idx][:, None, :] @ W_o)[:, 0]
+            return xyz.new_zeros((L, 3)).index_add_(0, lm_idx, q)
+
+        def w_z(z):
+            # y[c] = sum over the observations of c of W_o z[lm_o]
+            p = (W_o @ z[lm_idx][:, :, None])[..., 0]
+            return xyz.new_zeros((C, 6)).index_add_(0, cam_idx, p)
+
+        def vinv(v):
+            return (Vinv @ v[:, :, None])[..., 0]
+
+        def matvec(x):
+            return (Ud @ x[:, :, None])[..., 0] - w_z(vinv(wt_x(x)))
+
+        rhs = g_cam - w_z(vinv(g_lm))
+        d_cam = _pcg(matvec, _inv(Ud + 1e-6 * eye6), rhs, cg_iterations)
+        d_cam = d_cam * cam_free_f[:, None]
+        return d_cam, vinv(g_lm - wt_x(d_cam))
+
+    return _lm_loop(
+        lambda rv, tv, X: _assemble_cg(K, rv, tv, X, obs, cam_free_f,
+                                       lm_free_f, huber_delta),
+        step, rvec, tvec, xyz, cam_free_f, lm_free_f, iterations=iterations,
+        lam0=lam0, lam_up=lam_up, lam_down=lam_down, tol=tol)
 
 
 def observations_from_keyframes(kfs, lm_valid) -> Observations:

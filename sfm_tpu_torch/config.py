@@ -110,13 +110,13 @@ class SfMConfig:
     ba_lambda_down: float = 2.0
     ba_huber_delta: float = 0.0
     ba_tol: float = 3e-4
-    ba_solver: str = "dense"            # "dense" | "large" ("cg": not yet)
+    ba_solver: str = "dense"            # "dense" | "large" | "cg"
     ba_kmax: int = 16
     use_pallas_ba: bool = False         # no-op here (see module doc)
     ba_cg_iterations: int = 15
     ba_landmark_capacity: int = 0
     ba_local_window: int = 0
-    global_ba_every: int = 0            # global BA is not ported yet
+    global_ba_every: int = 0
     global_ba_iterations: int = 10
     global_ba_cg_iterations: int = 25
     global_ba_kmax: int = 0
@@ -174,3 +174,22 @@ FLAGSHIP = dict(
 # The flagship with the dense BA solver in place of the large one (the
 # first slice of the port; kept as the dense solver's end-to-end case).
 SLICE = dict(FLAGSHIP, ba_solver="dense", use_pallas_ba=False)
+
+# The long-scan configuration (benchmarks/bench_longscan.py's LARGE, field
+# for field; its TPU knobs are no-ops here): 512 keyframes, 65536
+# landmarks, a keyframe every 4 frames at most, windowed-local mapping BA
+# on the large solver over a compacted axis of 16384 landmarks, and a
+# global BA every 32 keyframe insertions (10 LM x 25 CG iterations, 16
+# observation slots per landmark, Huber 7).
+LONGSCAN = dict(
+    max_keypoints=512, max_keyframes=512, max_landmarks=65536,
+    image_height=480, image_width=640, pyramid_levels=4,
+    use_pallas_matcher=True, detector_approx_topk=True,
+    feature_dtype="bfloat16", ba_huber_delta=2.0,
+    keyframe_time_lag=4, keyframe_min_tracked=15,
+    ba_solver="large", ba_kmax=8, ba_iterations=3, ba_cg_iterations=12,
+    ba_local_window=24, use_pallas_ba=True, ba_landmark_capacity=16384,
+    global_ba_every=32, global_ba_iterations=10, global_ba_cg_iterations=25,
+    global_ba_kmax=16, global_ba_huber_delta=7.0,
+    mapping_tri_keyframes=8, mapping_reobs_keyframes=16,
+    mapping_reobs_capacity=8192)

@@ -8,16 +8,17 @@
  3. landmark culling and link clearing;
  4. keyframe culling;
  5. bundle adjustment, gauge-fixed on the oldest keyframe: the dense
-    solver (``ba_solver="dense"``) or the implicit-Schur PCG solver on
-    device-built landmark-major tables (``ba_solver="large"``, with the
-    K2 / K3 kernels on a CUDA device);
+    solver (``ba_solver="dense"``), the per-observation PCG solver
+    (``ba_solver="cg"``) or the implicit-Schur PCG solver on device-built
+    landmark-major tables (``ba_solver="large"``, with the K2 / K3 kernels
+    on a CUDA device);
  6. map aging."""
 
 from __future__ import annotations
 
 import torch
 
-from ..ba import observations_from_keyframes, run_ba
+from ..ba import observations_from_keyframes, run_ba, run_ba_cg
 from ..ba.core import (compact_ba_problem, compact_landmarks,
                        observations_from_keyframe_window,
                        scatter_back_landmarks)
@@ -211,10 +212,6 @@ def _reobserve_all(cfg: SfMConfig, cam: CameraParams, state: SfMState,
 
 def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                  new_slot) -> SfMState:
-    if cfg.ba_solver == "cg":
-        raise NotImplementedError(
-            "ba_solver='cg' is not ported yet (ROADMAP.md, still to port: "
-            "run_ba_cg with global BA and loop closure)")
     L = cfg.max_landmarks
     state = _triangulate_all_pairs(cfg, cam, state, new_slot)
     state = _reobserve_all(cfg, cam, state, new_slot)
@@ -276,6 +273,10 @@ def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
             cam.Kopt, kfs.frames.rvec, kfs.frames.tvec, ba_xyz,
             ObsTables(lm_cam, lm_uv, lm_w),
             cg_iterations=cfg.ba_cg_iterations, **kw)
+    elif cfg.ba_solver == "cg":
+        rv, tv, xyz, _ = run_ba_cg(cam.Kopt, kfs.frames.rvec,
+                                   kfs.frames.tvec, ba_xyz, ba_obs,
+                                   cg_iterations=cfg.ba_cg_iterations, **kw)
     else:
         rv, tv, xyz, _ = run_ba(cam.Kopt, kfs.frames.rvec, kfs.frames.tvec,
                                 ba_xyz, ba_obs, **kw)

@@ -6,9 +6,10 @@ frame), keeps the flow reference image in lockstep with the reference
 frame, and runs scan guidance on RGB frames that end RUNNING.
 ``SfMEngine`` mirrors the JAX package's driver: ``add_frame`` (inline
 mapping), ``add_frames`` (a chunk of frames with deferred mapping: the
-mapping pass runs once after the chunk), ``get_reconstruction``,
-``get_trajectory``, and ``save`` / ``load`` (checkpoints in the JAX
-package's layout)."""
+mapping pass runs once after the chunk), periodic global BA every
+``global_ba_every`` keyframe insertions (and ``global_ba`` on demand),
+``get_reconstruction``, ``get_trajectory``, and ``save`` / ``load``
+(checkpoints in the JAX package's layout)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from ..geometry.camera import optimal_new_camera_matrix
 from ..guidance import update_guidance
 from ..mapstore import add_descriptors, landmark_colors
 from .bootstrap import bootstrap_step
+from .global_ba import run_global_ba
 from .mapping import mapping_pass
 from .reloc import reloc_step
 from .state import (NOT_INITIALIZED, RUNNING, CameraParams, SfMState,
@@ -30,12 +32,8 @@ from .state import (NOT_INITIALIZED, RUNNING, CameraParams, SfMState,
 from .tracking import tracking_step
 
 _UNPORTED = (
-    ("global_ba_every", lambda c: c.global_ba_every > 0,
-     "global BA and loop closure"),
     ("loop_detect_every", lambda c: c.loop_detect_every > 0,
-     "global BA and loop closure"),
-    ("ba_solver", lambda c: c.ba_solver == "cg",
-     "run_ba_cg with global BA and loop closure"),
+     "loop closure"),
 )
 
 
@@ -152,6 +150,24 @@ class SfMEngine:
         self.generator.manual_seed(seed)
         self.state = init_state(cfg, self.device)
         self.metrics_log = []
+        self._kfs_since_global_ba = 0
+
+    def _maybe_global_ba(self, n_new_keyframes: int) -> None:
+        """Periodic global BA: once ``global_ba_every`` keyframes were
+        inserted since the last one."""
+        if self.config.global_ba_every <= 0:
+            return
+        self._kfs_since_global_ba += n_new_keyframes
+        if self._kfs_since_global_ba >= self.config.global_ba_every:
+            self.global_ba()
+
+    def global_ba(self) -> dict:
+        """Run global BA on the current map now; returns its stats
+        (initial_cost, final_cost, lam, accepted, dropped_obs) as numpy
+        values."""
+        self.state, stats = run_global_ba(self.config, self.cam, self.state)
+        self._kfs_since_global_ba = 0
+        return {k: v.cpu().numpy() for k, v in stats._asdict().items()}
 
     def _images(self, images, batched: bool) -> torch.Tensor:
         """Frames as float32 on the device: RGB stays RGB when guidance is
@@ -174,6 +190,7 @@ class SfMEngine:
                                    self._images(image, False), self.generator)
         out = _fetch([m])[0]
         self.metrics_log.append(out)
+        self._maybe_global_ba(int(out["keyframe_added"]))
         return out
 
     def add_frames(self, images) -> list:
@@ -193,6 +210,7 @@ class SfMEngine:
                                              self.state)
         out = _fetch(ms)
         self.metrics_log.extend(out)
+        self._maybe_global_ba(sum(int(m["keyframe_added"]) for m in out))
         return out
 
     def get_reconstruction(self) -> Tuple[np.ndarray, np.ndarray]:

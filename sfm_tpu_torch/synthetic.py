@@ -1,8 +1,10 @@
 """Synthetic textured-sprite scan generator (numpy only).
 
 A copy of ``sfm_tpu.synthetic``'s ``SpriteScene``, ``strafe_trajectory``
-and ``umeyama_ate``: the same seed renders the same frames in both
-packages, and this copy runs where JAX is not installed."""
+and ``umeyama_ate``, and of ``benchmarks/bench_longscan.py``'s
+``serpentine_trajectory`` and scene (``longscan_scene``): the same seed
+renders the same frames in both packages, and this copy runs where JAX is
+not installed."""
 
 from __future__ import annotations
 
@@ -83,6 +85,41 @@ def strafe_trajectory(n_frames, step=0.05, yaw_rate=0.004):
         rvecs.append(log_rotation(R))
         tvecs.append(tvec.astype(np.float32))
     return np.asarray(rvecs, np.float32), np.asarray(tvecs, np.float32)
+
+
+def serpentine_trajectory(n_frames, amp=5.0, period=256, drift=0.012,
+                          yaw_amp=0.10):
+    """A loopy lateral sweep: x oscillates (amplitude ``amp``) while y
+    drifts slowly, so the camera revisits each x-column every ``period``
+    frames, with a deterministic handheld shake on top (without it the
+    camera stands still at the sweep's apexes for longer than the lost
+    tolerance).  Returns (rvecs, tvecs) world-to-camera."""
+    rvecs, tvecs = [], []
+    for k in range(n_frames):
+        ph = 2 * np.pi * k / period
+        shake = np.array([0.028 * np.sin(2 * np.pi * k / 5.0),
+                          0.022 * np.sin(2 * np.pi * k / 7.0),
+                          0.012 * np.sin(2 * np.pi * k / 11.0)])
+        c = np.array([amp * np.sin(ph), drift * k, 0.0]) + shake
+        yaw = -yaw_amp * np.cos(ph)
+        R = np.array([[np.cos(yaw), 0, -np.sin(yaw)],
+                      [0, 1, 0],
+                      [np.sin(yaw), 0, np.cos(yaw)]])
+        rvecs.append(log_rotation(R))
+        tvecs.append((-R @ c).astype(np.float32))
+    return np.asarray(rvecs, np.float32), np.asarray(tvecs, np.float32)
+
+
+def longscan_scene(n_frames):
+    """The long-scan scene and trajectory: 2600 sprites of size 0.85 at
+    depths 6-11 (40-75 px at f = 525), spread along the serpentine's
+    drift.  Returns (scene, rvecs, tvecs)."""
+    rng = np.random.default_rng(3)
+    scene = SpriteScene(rng, n_sprites=2600, spread=7.0, depth=(6.0, 11.0),
+                        sprite_size=0.85)
+    scene.centers[:, 1] = rng.uniform(-2.0, 2.0 + 0.012 * n_frames, 2600)
+    rvecs, tvecs = serpentine_trajectory(n_frames)
+    return scene, rvecs, tvecs
 
 
 def umeyama_ate(est_t, gt_t):

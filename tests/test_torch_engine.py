@@ -292,17 +292,22 @@ def test_distorted_camera_scan():
 
 
 def test_flagship_engine_and_unported_solver():
-    """SfMEngine takes the FLAGSHIP preset (the large solver); the
-    ba_solver "cg" still raises, naming its ROADMAP item."""
+    """SfMEngine takes the FLAGSHIP preset (the large solver), the cg
+    solver and periodic global BA; loop closure still raises, naming its
+    ROADMAP item."""
     from sfm_tpu_torch.config import FLAGSHIP
     K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
                  np.float32)
     eng = SfMEngine(K, (480, 640), config=SfMConfig(**FLAGSHIP),
                     device="cpu")
     assert eng.config.ba_solver == "large" and eng.status == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.*run_ba_cg"):
+    for kw in (dict(ba_solver="cg"), dict(global_ba_every=32)):
+        eng = SfMEngine(K, (480, 640), config=SfMConfig(**{**FLAGSHIP, **kw}),
+                        device="cpu")
+        assert all(getattr(eng.config, k) == v for k, v in kw.items())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*loop closure"):
         SfMEngine(K, (480, 640),
-                  config=SfMConfig(**dict(FLAGSHIP, ba_solver="cg")),
+                  config=SfMConfig(**dict(FLAGSHIP, loop_detect_every=8)),
                   device="cpu")
 
 
@@ -319,6 +324,8 @@ def test_imports_without_jax():
             "import sfm_tpu_torch.io, sfm_tpu_torch.io.ply\n"
             "import sfm_tpu_torch.io.video, sfm_tpu_torch.io.checkpoint\n"
             "import sfm_tpu_torch.io.runtime, sfm_tpu_torch.io.tum\n"
+            "import sfm_tpu_torch.engine.global_ba, sfm_tpu_torch.utils\n"
+            "from sfm_tpu_torch.ba import run_ba_cg\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"
             "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

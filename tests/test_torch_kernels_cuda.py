@@ -461,3 +461,126 @@ def test_ba_wrappers_refuse_bad_input(cuda):
                                             device=cuda),
                         torch.zeros((L, 300, 6, 3), device=cuda), Vinv, None,
                         x)
+
+
+def _global_ba_args(cuda, live, C=512, L=65536, kmax=16, seed=0):
+    """K2's arguments at the long scan's global-BA shape: C cameras 5 cm
+    apart along x, each landmark seen by up to kmax cameras around it
+    (16 slots, some left empty), noisy pixels with outliers, Huber 7; only
+    the first ``live`` share of the landmark rows observed, as global BA's
+    table over the whole landmark store leaves it."""
+    rng = np.random.default_rng(seed)
+    cx = 0.05 * np.arange(C)
+    X = np.stack([rng.uniform(0, cx[-1], L), rng.uniform(-1.5, 1.5, L),
+                  rng.uniform(4, 8, L)], 1)
+    n = rng.integers(2, kmax + 1, L)
+    first = np.clip(np.searchsorted(cx, X[:, 0]) - n // 2, 0, C - n)
+    n[int(live * L):] = 0
+    lm_idx = np.repeat(np.arange(L), n)
+    cam_idx = np.concatenate([f + np.arange(k) for f, k in zip(first, n)])
+    rv = rng.normal(0, 0.01, (C, 3))
+    tv = np.stack([-cx, rng.normal(0, 0.01, C), rng.normal(0, 0.01, C)], 1)
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    Rs = np.stack([rodrigues_np(r) for r in rv])
+    p = np.einsum("oab,ob->oa", Rs[cam_idx], X[lm_idx]) + tv[cam_idx]
+    uv = p[:, :2] / p[:, 2:] @ TEST_K[:2, :2].T + TEST_K[:2, 2]
+    uv = uv + rng.normal(0, 0.7, uv.shape)
+    uv[rng.uniform(0, 1, len(uv)) < 0.05] += 30.0
+    f = np.float32
+    o = Observations(to_t(cam_idx).long().to(cuda), to_t(lm_idx).long()
+                     .to(cuda), to_t(uv.astype(f)).to(cuda),
+                     torch.ones(len(uv), device=cuda))
+    lm_cam, lm_uv, lm_w, dropped = build_lm_tables_device(o, L, kmax)
+    assert int(dropped) == 0
+    cam_free = torch.ones(C, device=cuda)
+    cam_free[0] = 0.0
+    Xn = X + rng.normal(0, 0.02, X.shape)
+    R = exp_so3(to_t(rv.astype(f)).to(cuda)).contiguous()
+    return (to_t(TEST_K).to(cuda), R, to_t(tv.astype(f)).to(cuda),
+            to_t(Xn.astype(f)).to(cuda), torch.ones(L, device=cuda),
+            cam_free, lm_cam, lm_uv, lm_w, 7.0)
+
+
+@pytest.mark.parametrize("live", [0.2, 1.0])
+def test_ba_kernels_at_the_global_ba_shape(cuda, live):
+    """K2, K3 full and K3-gather at C=512, L=65536, kmax=16 (a 1M-slot
+    camera-major index, most camera slots idle early in a scan), with 20%
+    and 100% of the landmark rows live: equal to the plain versions and
+    bit-identical on a rerun."""
+    from sfm_tpu_torch.ba.large import camera_slots
+    args = _global_ba_args(cuda, live)
+    cs = camera_slots(args[6], args[8], 512)
+    out = lp.ba_linearize_kernel(*args, slots=cs)
+    ref = lp.ba_linearize_plain(*args)
+    ref64 = lp.ba_linearize_plain(*_f64(args))
+    for name, a, b, c in zip(("W", "V", "g_lm", "U", "g_cam", "cost"), out,
+                             ref, ref64):
+        print(f"K2 global-BA shape, live {live}, {name}: from f64, kernel "
+              f"{_err_to_largest(a, c):.3e}, f32 plain "
+              f"{_err_to_largest(b, c):.3e}; kernel from f32 plain "
+              f"{_err_to_largest(a, b):.3e}")
+    # f32 pixels of a few hundred and 512 cameras' sums in another order:
+    # as in test_linearize_kernel_equals_plain past 1000 cameras, the f64
+    # run is the witness, and the cost is held to _close
+    for a, b, c in zip(out, ref, ref64):
+        assert _err_to_largest(a, c) <= 2 * _err_to_largest(b, c) + 1e-6
+        assert _err_to_largest(a, b) <= 1e-4
+    _close(out[-1], ref[-1])
+    for a, b in zip(out, lp.ba_linearize_kernel(*args, slots=cs)):
+        assert torch.equal(a, b)
+    W, V, g_lm = out[:3]
+    Vinv = lp.damped_vinv(V, 1e-3)
+    lm_cam = args[6]
+    x = torch.randn((512, 6), generator=torch.Generator(cuda).manual_seed(0),
+                    device=cuda)
+    # K3 against the same witness: the plain version in float64 (the
+    # kernel no farther from it than twice the f32 plain version), and
+    # within 1e-4 of the largest entry (chip_smoke.py's BA_REL_TOL)
+    w64 = [t.double() for t in (W, Vinv, g_lm, x)]
+    for mode, kern, plain in (
+            ("full", lambda W, Vinv, g, x: sp.schur_kernel(
+                "full", lm_cam, W, Vinv, g, x, slots=cs),
+             lambda W, Vinv, g, x: sp.schur_apply_fused_plain(
+                 lm_cam, W, Vinv, g, x, 512)),
+            ("gather", lambda W, Vinv, g, x: (sp.schur_kernel(
+                "gather", lm_cam, W, Vinv, g, x),),
+             lambda W, Vinv, g, x: (sp.schur_gather_plain(
+                 lm_cam, W, Vinv, g, x),))):
+        first = kern(W, Vinv, g_lm, x)
+        for a, b, c in zip(first, plain(W, Vinv, g_lm, x), plain(*w64)):
+            e_kernel, e_plain = _err_to_largest(a, c), _err_to_largest(b, c)
+            print(f"K3 {mode} global-BA shape, live {live}: from f64, kernel "
+                  f"{e_kernel:.3e}, f32 plain {e_plain:.3e}")
+            assert e_kernel <= 2 * e_plain + 1e-7
+            assert _err_to_largest(a, b) <= 1e-4
+        for a, b in zip(first, kern(W, Vinv, g_lm, x)):
+            assert torch.equal(a, b)
+    assert float(out[-1]) > 0
+
+
+def test_run_ba_cg_on_the_card_matches_the_cpu(cuda):
+    """run_ba_cg on the card (index_add_ with atomics) against its CPU
+    run on the same inputs: costs within rel 1e-4, the same accepted
+    steps."""
+    from sfm_tpu_torch.ba import run_ba_cg
+    rng = np.random.default_rng(4)
+    _, init, obs = ba_scene(rng, 6, 80, 4, noise_px=0.5, outlier_p=0.03,
+                            dead_p=0.1, min_obs=2)
+    cam_free = np.arange(6) > 0
+    out = {}
+    for dev in ("cpu", cuda):
+        o = Observations(to_t(obs[0]).long().to(dev),
+                         to_t(obs[1]).long().to(dev), to_t(obs[2]).to(dev),
+                         to_t(obs[3]).to(dev))
+        out[str(dev)] = run_ba_cg(
+            to_t(TEST_K).to(dev), to_t(init["rv"]).to(dev),
+            to_t(init["tv"]).to(dev), to_t(init["X"]).to(dev), o,
+            cam_free=to_t(cam_free).to(dev),
+            lm_free=torch.ones(80, dtype=torch.bool, device=dev),
+            iterations=12, cg_iterations=15, huber_delta=2.0, tol=3e-4)[3]
+    a, b = out["cuda"], out["cpu"]
+    assert float(b.final_cost) < 0.5 * float(b.initial_cost)
+    for k in ("initial_cost", "final_cost"):
+        np.testing.assert_allclose(float(getattr(a, k)),
+                                   float(getattr(b, k)), rtol=1e-4)
+    assert int(a.accepted) == int(b.accepted)
