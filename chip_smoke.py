@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --calls DIR   # K1 / K5 call times of DIR's package
+    python3 chip_smoke.py --ring N      # the ring phase alone, N runs
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
@@ -31,7 +32,7 @@
    checks and its mapping pass beside the large and dense solvers';
 10. "longscan": LONGSCAN (benchmarks/bench_longscan.py's LARGE: 512
    keyframes, 65536 landmarks, windowed-local mapping BA, global BA every
-   32 keyframe insertions) on bench_longscan's serpentine sweep, 1024 of
+   32 keyframe insertions) on bench_longscan's serpentine sweep, 512 of
    its 2048 frames through add_frames in chunks of 4, each chunk rendered
    just before it is fed (by three processes ahead of the engine), ended
    by two global_ba calls; checks RUNNING, keyframes, the global BA
@@ -39,7 +40,18 @@
    K5, and the ATE; prints the time split into tracking, mapping passes
    and global BA, and global BA ms per LM iteration; K1's calls are
    recorded by call site, as in the FLAGSHIP scan;
-11. holds each kernel against its plain PyTorch version at the main path's
+11. "ring": RING (benchmarks/bench_loop_closure.py's configuration:
+   LONGSCAN with a loop probe every 8 keyframe insertions) on its
+   outward-looking orbit, all 1280 frames, as the long scan is driven;
+   besides the long scan's checks (the ATE under 5%): at least one loop
+   closure, every closure past 300 degrees of the orbit, the end-of-loop
+   drift after the final global BA under 1.2 m, two global BA calls per
+   closure, none raising its cost, with K2 / K3 / K3-gather, and two K1
+   launches per probe at the probe's call site (whose calls are
+   recorded); prints the closures, the drift before and after the final
+   global BA, the split with loop probes and closures as their own phases
+   and the host ms per probe and per closure;
+12. holds each kernel against its plain PyTorch version at the main path's
    shapes and times both, in device time (torch.profiler) and with CUDA
    events, beside the kernel's bound (bytes over the memory rate or
    operations over the core rate, from this run's inputs; the card's clock
@@ -48,7 +60,8 @@
    call, three device ops, at its five shapes (relocalization's
    windowless 8192x512 match included), with the route its rule did not
    pick held and timed too where the window admits both; K1 again on the
-   FLAGSHIP scan's and the long scan's own calls, replayed by call site
+   FLAGSHIP scan's and the long scan's own calls and on the ring's loop
+   probe calls (65536 windowless sources), replayed by call site
    and route (bit for bit, device time per call beside the plain
    version's, bound, the other route, device time lost per scan); K5 bit
    for bit (with F.grid_sample at the same sample
@@ -69,15 +82,18 @@
    under torch.profiler, for the card's busy share.  This comes last
    because a profiler session leaves the host slower for the host-bound
    phases after it (and a long one disturbs the sessions after it);
-12. prints a JSON line with the phases' numbers, a JSON line with the
+13. prints a JSON line with the phases' numbers, a JSON line with the
    kernels' numbers (the six kernels, then K2 / K3 / K3-gather at the long
-   scan's two shapes, then K1 at the long scan's call sites), then the
-   card line, then {"ok": true, "device":
+   scan's two shapes, then K1 at the long scan's call sites and at the
+   ring's loop probe), then the card line, then {"ok": true, "device":
    {...}} as the last line.
 With ``--calls DIR`` it only times K1's whole call at its five shapes and
 K5's call (device time and device ops per call) for the sfm_tpu_torch
 package under DIR, and prints them as JSON and the card line: the way to
-compare two commits in one run on one card.
+compare two commits in one run on one card.  With ``--ring N`` it runs
+only the ring phase, N times, and prints each run's checks and numbers
+as a JSON line, then the card line (exit 1 when a run failed a check):
+the spread of a scan whose outcome varies from run to run.
 Any failed check raises, and the script exits non-zero."""
 
 import contextlib
@@ -977,21 +993,22 @@ def _kept(torch, t):
     return t.clone()
 
 
-def count_k1_sites(native, record=None):
+def count_k1_sites(native, record=None, record_sites=None):
     """Wrap the matcher entry of each engine module so that K1's launches
     are also counted by calling function ("module.function"); returns the
     counts and a function that undoes the wrapping.  The wrapper counts
     what the kernel's own counter adds, nothing else.  With a list
     ``record``, each K1 call also appends (site, a copy of the kernel's
     arguments), taken at the K1 dispatch ``match_pallas.hamming_match``,
-    for the replay in ``k1_by_site``."""
+    for the replay in ``k1_by_site``; with ``record_sites`` (site name
+    prefixes), only the calls of those sites."""
     import importlib
 
     import torch
 
     from sfm_tpu_torch.features import match_pallas as mp
     sites, undo, current = {}, [], [None]
-    for stem in ("bootstrap", "tracking", "mapping", "reloc"):
+    for stem in ("bootstrap", "tracking", "mapping", "reloc", "loop"):
         mod = importlib.import_module(f"sfm_tpu_torch.engine.{stem}")
         real = mod.match_features_pallas
 
@@ -1012,7 +1029,9 @@ def count_k1_sites(native, record=None):
         dispatch = mp.hamming_match
 
         def recorded(*a):
-            record.append((current[0], tuple(_kept(torch, x) for x in a)))
+            if record_sites is None or (current[0] or "").startswith(
+                    tuple(record_sites)):
+                record.append((current[0], tuple(_kept(torch, x) for x in a)))
             return dispatch(*a)
         mp.hamming_match = recorded
         undo.append((mp, "hamming_match", dispatch))
@@ -1346,19 +1365,39 @@ def time_flow(torch, dev, cfg, K=K):
 # the longscan phase: frames fed (benchmarks/bench_longscan.py feeds
 # 2048), the keyframes it must insert, the BA kernels every global BA call
 # must launch, and the processes that render its frames ahead of the engine
-LONGSCAN_FRAMES = 1024
+LONGSCAN_FRAMES = 512
 LONGSCAN_MIN_KEYFRAMES = 64
 GLOBAL_BA_KERNELS = ("ba_linearize", "schur_apply", "schur_gather")
 RENDER_WORKERS = 3
 # the long scan's last chunks, fed again from the state before them under
 # torch.profiler for the card's busy share
 TAIL_CHUNKS = 2
+# the ring phase: benchmarks/bench_loop_closure.py's default orbit (1280
+# frames over 1.12 turns); a closure is true only past 300 degrees of it
+# (the start region's landmarks come back into view after ~330), and the
+# end-of-loop drift after the final global BA must stay under 10% of the
+# orbit's 12 m diameter
+RING_FRAMES = 1280
+RING_TURNS = 1.12
+RING_CLOSURE_DEG = 300.0
+RING_MAX_DRIFT = 1.2
+RING_ATE = 0.05
 _RENDER = {}
 
 
-def _render_init(n_frames, K, H, W):
-    from sfm_tpu_torch.synthetic import longscan_scene
-    _RENDER.update(scene=longscan_scene(n_frames), K=K, H=H, W=W)
+def scan_scene(name, n_frames):
+    """(scene, rvecs, tvecs) of a scan phase: "longscan" (bench_longscan's
+    serpentine sweep over its scene) or "ring" (bench_loop_closure's
+    outward-looking orbit of ``n_frames`` frames inside its sprite ring)."""
+    from sfm_tpu_torch import synthetic
+    if name == "ring":
+        return (synthetic.ring_scene(),
+                *synthetic.ring_loop_trajectory(n_frames, turns=RING_TURNS))
+    return synthetic.longscan_scene(n_frames)
+
+
+def _render_init(name, n_frames, K, H, W):
+    _RENDER.update(scene=scan_scene(name, n_frames), K=K, H=H, W=W)
 
 
 def _render_chunk(lo, hi):
@@ -1367,14 +1406,18 @@ def _render_chunk(lo, hi):
                                   _RENDER["W"]) for i in range(lo, hi)])
 
 
-def rendered_chunks(n_frames, chunk, K, H, W, workers):
-    """The long scan's frames, chunk by chunk, each rendered shortly before
-    it is fed: by ``workers`` processes at most 8 chunks ahead, or here
-    when ``workers`` is 0.  The processes end with the generator."""
+def rendered_chunks(n_frames, chunk, K, H, W, workers, scene="longscan",
+                    orbit=None):
+    """The first ``n_frames`` frames of a scan phase (``scan_scene`` of
+    ``scene`` over ``orbit`` frames, by default ``n_frames``), chunk by
+    chunk, each rendered shortly before it is fed: by ``workers``
+    processes at most 8 chunks ahead, or here when ``workers`` is 0.  The
+    processes end with the generator."""
+    init = (scene, orbit or n_frames, K, H, W)
     spans = [(lo, min(lo + chunk, n_frames))
              for lo in range(0, n_frames, chunk)]
     if workers == 0:
-        _render_init(n_frames, K, H, W)
+        _render_init(*init)
         for lo, hi in spans:
             yield _render_chunk(lo, hi)
         return
@@ -1385,7 +1428,7 @@ def rendered_chunks(n_frames, chunk, K, H, W, workers):
     with ProcessPoolExecutor(workers,
                              mp_context=multiprocessing.get_context("spawn"),
                              initializer=_render_init,
-                             initargs=(n_frames, K, H, W)) as pool:
+                             initargs=init) as pool:
         todo = iter(spans)
         pending = collections.deque(
             pool.submit(_render_chunk, *span)
@@ -1398,53 +1441,81 @@ def rendered_chunks(n_frames, chunk, K, H, W, workers):
             yield frames
 
 
+def periodic_schedule(inserted, closed, every):
+    """The chunks after which the engine runs a periodic global BA: per
+    chunk, a loop closure in it (its two global BA calls) restarts the
+    count, then the chunk's insertions add to it, and a count of
+    ``every`` runs the call and restarts it (the JAX engine's
+    ``_maybe_global_ba``)."""
+    since, out = 0, []
+    for i, (n, c) in enumerate(zip(inserted, closed)):
+        since = (0 if c else since) + n
+        if every > 0 and since >= every:
+            out.append(i)
+            since = 0
+    return out
+
+
 def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
                  K=K, n_frames=LONGSCAN_FRAMES,
                  min_keyframes=LONGSCAN_MIN_KEYFRAMES,
-                 workers=RENDER_WORKERS, k1_calls=None):
-    """The long scan: ``add_frames`` in chunks of keyframe_time_lag over the
-    serpentine sweep of ``synthetic.longscan_scene`` (benchmarks/
-    bench_longscan.py's scene), with periodic global BA, ended by two
+                 workers=RENDER_WORKERS, k1_calls=None, scene="longscan",
+                 orbit=None, ate_limit=0.02, k1_record_sites=None,
+                 check=True):
+    """A long scan: ``add_frames`` in chunks of keyframe_time_lag over the
+    first ``n_frames`` frames of ``scan_scene(scene, orbit)``: by default
+    the serpentine sweep of ``synthetic.longscan_scene`` (benchmarks/
+    bench_longscan.py's scene), with periodic global BA (and loop probes
+    and closures when the configuration has them), ended by two
     ``global_ba`` calls as bench_longscan ends.  The time splits into
-    tracking, mapping passes and global BA calls (``PhaseTimer``, the host
-    clock around synchronised calls); each global BA call's launches are
-    counted.  Checks: RUNNING on >= 95% of the post-bootstrap frames, >=
-    ``min_keyframes`` keyframes inserted, exactly one periodic global BA
-    per global_ba_every insertions, no global BA call raising the cost,
-    ``gba_kernels`` launched in every global BA call and ``kernels`` by the
-    phase, and the sim(3) keyframe ATE after the final global BA under 2%
-    of the trajectory's extent (its largest coordinate range, as
-    bench_longscan measures it).  K1's launches are also counted per call
-    site, and its calls recorded into the list ``k1_calls`` when given
-    (copies on the device: the peak memory is then read per chunk, less
-    the copies held when the chunk began).  Returns the numbers, and under
-    "keep"
-    (for ``longscan_device``) the state before the final global BA calls,
-    the arguments of the first K2 call of the last mapping pass and of the
-    last periodic global BA call, the engine, and the state before the
-    last TAIL_CHUNKS chunks with their frames."""
+    tracking, mapping passes, global BA calls and, with loop closure,
+    loop probes and closures (``PhaseTimer``, the host clock around
+    synchronised calls); each global BA call's launches are counted.
+    Checks: RUNNING on >= 95% of the post-bootstrap frames, >=
+    ``min_keyframes`` keyframes inserted, a periodic global BA after
+    exactly the chunks the schedule names (``periodic_schedule``), no
+    global BA call raising the cost, two global BA calls per closure,
+    ``gba_kernels`` launched in every global BA call and ``kernels`` by
+    the phase, and the sim(3) keyframe ATE after the final global BA
+    under ``ate_limit`` of the trajectory's extent (its largest
+    coordinate range, as bench_longscan measures it).  K1's launches are
+    also counted per call site, and its calls (of the sites
+    ``k1_record_sites`` only, when given) recorded into the list
+    ``k1_calls`` when given (copies on the device: the peak memory is
+    then read per chunk, less the copies held when the chunk began).  With
+    ``check`` False the checks are returned under "checks", not raised.
+    Returns the numbers, and under "keep" (for ``longscan_device`` and
+    ``run_ring``) the state before the final global BA calls, the
+    arguments of the first K2 call of the last mapping pass and of the
+    last periodic global BA call, the engine, the state before the last
+    TAIL_CHUNKS chunks with their frames, the keyframe trajectory before
+    the final calls and the ground-truth poses."""
     import importlib
 
     from sfm_tpu_torch import native
     from sfm_tpu_torch.ba.large import CameraSlots
     from sfm_tpu_torch.engine import SfMEngine
     from sfm_tpu_torch.np_geometry import rodrigues_np
-    from sfm_tpu_torch.synthetic import longscan_scene, umeyama_ate
+    from sfm_tpu_torch.synthetic import umeyama_ate
     from sfm_tpu_torch.utils import PhaseTimer
     step = importlib.import_module("sfm_tpu_torch.engine.step")
     large = importlib.import_module("sfm_tpu_torch.ba.large")
 
-    label = "longscan"
+    label = scene
     H, W = cfg.image_size
     chunk = cfg.keyframe_time_lag
     n_frames -= n_frames % chunk
-    _, rvecs, tvecs = longscan_scene(n_frames)
+    _, rvecs, tvecs = scan_scene(scene, orbit or n_frames)
     eng = SfMEngine(K, (H, W), config=cfg, device=dev, seed=0)
     timer = PhaseTimer()
-    recorded, current, fed = {}, [None], [0]
+    recorded, current, fed, at_chunk = {}, [None], [0], [0]
     gba, map_launches = [], {k: 0 for k in native.LAUNCHES}
-    real_lin, real_map, real_gba = (large.ba_linearize,
-                                    step.run_pending_mapping, eng.global_ba)
+    # the loop probes' results (``seen``), each probe's numbers, and the
+    # index and close_loop ms of the closure under way
+    probes, seen, closing = [], [], [None, 0.0]
+    real_lin, real_map, real_gba, real_probe, real_close, real_build = (
+        large.ba_linearize, step.run_pending_mapping, eng.global_ba,
+        eng.probe_loop_closure, step.close_loop, step.build_loop_probe)
 
     def copy(x):
         return x.clone() if torch.is_tensor(x) else x
@@ -1477,24 +1548,76 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
         with timer.phase("global BA"):
             # the periodic calls' problems are recorded: the final calls
             # start at a converged map, where the gradients are f32 noise
-            current[0] = "global" if fed[0] < n_frames else None
+            current[0] = "global" if fed[0] < n_frames \
+                and closing[0] is None else None
             out = real_gba()
             sync(torch, dev)
         ms = 1e3 * (time.perf_counter() - t0)
         current[0] = None
         launches = {k: native.LAUNCHES[k] - n0[k] for k in n0}
         n_lin = launches["ba_linearize"]
-        call = dict(after_frame=fed[0], ms=ms, launches=launches,
+        call = dict(after_frame=fed[0], chunk=at_chunk[0], ms=ms,
+                    closure=closing[0], launches=launches,
                     lm_iterations=n_lin - 1 if n_lin else None,
                     **{k: float(v) for k, v in out.items()})
         gba.append(call)
-        log(f"[{label}] global BA after frame {fed[0]}: cost "
-            f"{call['initial_cost']:.6e} -> {call['final_cost']:.6e}, "
-            f"{int(call['accepted'])} accepted, dropped_obs "
+        log(f"[{label}] global BA after frame {fed[0]}"
+            + ("" if closing[0] is None else f" (closure {closing[0]})")
+            + f": cost {call['initial_cost']:.6e} -> {call['final_cost']:.6e}"
+            f", {int(call['accepted'])} accepted, dropped_obs "
             f"{int(call['dropped_obs'])}, {ms:.3f} ms on the host clock"
             + (f" ({ms / (n_lin - 1):.3f} ms per LM iteration)"
                if n_lin > 1 else "")
             + f", launches {dict((k, v) for k, v in launches.items() if v)}")
+        return out
+
+    def build_loop_probe(cfg, cam, generator):
+        # each probe's result, for the log
+        probe = real_build(cfg, cam, generator)
+
+        def recorded(state, slot, pnp_samples=None):
+            out = probe(state, slot, pnp_samples)
+            seen.append(dict(
+                frame=int(state.kfs.frames.frame_no[slot]),
+                n_inliers=int(out.n_inliers), drift=float(out.drift),
+                scale=float(out.scale), scale_ok=bool(out.scale_ok),
+                n_pairs=int(out.n_pairs)))
+            return out
+        return recorded
+
+    def close_loop(*a, **kw):
+        # inside probe_loop_closure; the closure's two global BA calls follow
+        closing[0] = sum(p["closed"] for p in probes)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = real_close(*a, **kw)
+        sync(torch, dev)
+        closing[1] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def probe_loop_closure():
+        sync(torch, dev)
+        n_gba, n_seen = len(gba), len(seen)
+        t0 = time.perf_counter()
+        with timer.phase("loop probe"):
+            out = real_probe()
+            sync(torch, dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        p = dict(seen[-1] if len(seen) > n_seen else {}, closed=out,
+                 after_frame=fed[0], chunk=at_chunk[0], ms=ms)
+        if out:
+            # the closure: close_loop and its two global BA calls
+            p.update(close_ms=closing[1], global_ba_calls=len(gba) - n_gba,
+                     closure_ms=closing[1] + sum(c["ms"] for c in gba[n_gba:]))
+            log(f"[{label}] loop closure {closing[0]} at frame {p['frame']} "
+                f"(fed {fed[0]}): drift {p['drift']:.3f}, {p['n_inliers']} "
+                f"inliers, scale {p['scale']:.4f} (ok {p['scale_ok']}, "
+                f"{p['n_pairs']} pairs); close_loop {p['close_ms']:.3f} ms, "
+                f"with its global BA calls {p['closure_ms']:.3f} ms; the "
+                f"probe {ms - p['closure_ms']:.3f} ms")
+        closing[0] = None
+        p["probe_ms"] = ms - p.get("closure_ms", 0.0)
+        probes.append(p)
         return out
 
     cuda = torch.device(dev).type == "cuda"
@@ -1522,26 +1645,32 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
         mem["slack"] = max(mem["slack"], held_bytes() - held0)
 
     eng.global_ba = global_ba
+    eng.probe_loop_closure = probe_loop_closure
     step.run_pending_mapping = mapping
+    step.close_loop = close_loop
+    step.build_loop_probe = build_loop_probe
     large.ba_linearize = linearize
-    k1_sites, restore_k1 = count_k1_sites(native, k1_calls)
+    k1_sites, restore_k1 = count_k1_sites(native, k1_calls, k1_record_sites)
     # the state before the last chunks and their frames, which
     # longscan_device feeds again under torch.profiler
     tail_from = len(range(0, n_frames, chunk)) - TAIL_CHUNKS
     tail = dict(frames=[], s=0.0)
-    metrics, steady_s, first_s = [], 0.0, 0.0
+    metrics, steady_s, first_s, per_chunk = [], 0.0, 0.0, []
     try:
         native.reset_launch_counts()
-        for i, frames in enumerate(rendered_chunks(n_frames, chunk, K, H, W,
-                                                   workers)):
+        for i, frames in enumerate(rendered_chunks(
+                n_frames, chunk, K, H, W, workers, scene, orbit)):
             if i == tail_from:
                 tail.update(state=eng.state, since=eng._kfs_since_global_ba)
             imgs = torch.as_tensor(frames, device=dev)
             sync(torch, dev)
+            at_chunk[0] = i
             t0 = time.perf_counter()
             with timer.phase("add_frames"), peak_memory():
-                metrics += eng.add_frames(imgs)     # fetches: synced
+                out = eng.add_frames(imgs)     # fetches: synced
             dt = time.perf_counter() - t0
+            metrics += out
+            per_chunk.append(sum(int(m["keyframe_added"]) for m in out))
             if i:
                 steady_s += dt
             else:
@@ -1556,8 +1685,10 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
                     f" of the last 128, {int(eng.state.kfs.valid.sum())} "
                     f"keyframes, {int(eng.state.lms.valid.sum())} landmarks,"
                     f" {steady_s:.1f} s in the engine")
-        n_periodic = len(gba)
+        n_scan = len(gba)
         kept_state = eng.state
+        before = dict(traj=eng.get_trajectory(),
+                      frame_nos=eng.keyframe_numbers())
         for _ in range(2):
             with peak_memory():
                 eng.global_ba()
@@ -1565,15 +1696,18 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
     finally:
         restore_k1()
         step.run_pending_mapping = real_map
+        step.close_loop = real_close
+        step.build_loop_probe = real_build
         large.ba_linearize = real_lin
         eng.global_ba = real_gba
+        eng.probe_loop_closure = real_probe
 
     status = np.array([int(m["status"]) for m in metrics])
     boot = int(np.argmax(status == 1)) if (status == 1).any() else None
     if boot is None:
         raise AssertionError(f"{label}: the scan never bootstrapped")
     running = float((status[boot + 1:] == 1).mean())
-    inserted = int(sum(int(m["keyframe_added"]) for m in metrics))
+    inserted = sum(per_chunk)
     kfs = eng.state.kfs
     valid = kfs.valid.cpu().numpy()
     fns = kfs.frames.frame_no.cpu().numpy()[valid]
@@ -1586,14 +1720,22 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
     ate = umeyama_ate(est_c, gt_c)
     extent = float(np.ptp(gt_c, axis=0).max())
     pts, _ = eng.get_reconstruction()
+    closures = [p for p in probes if p["closed"]]
+    periodic = [c for c in gba[:n_scan] if c["closure"] is None]
     summ = timer.summary()
     tot = {k: summ.get(k, {}).get("total_s", 0.0)
-           for k in ("add_frames", "mapping pass", "global BA")}
-    periodic_s = sum(c["ms"] for c in gba[:n_periodic]) / 1e3
+           for k in ("add_frames", "mapping pass", "global BA",
+                     "loop probe")}
+    periodic_s = sum(c["ms"] for c in periodic) / 1e3
+    closure_s = sum(p["closure_ms"] for p in closures) / 1e3
+    probe_s = tot["loop probe"] - closure_s
     split = {"tracking": tot["add_frames"] - tot["mapping pass"]
-             - periodic_s, "mapping passes": tot["mapping pass"],
+             - periodic_s - tot["loop probe"],
+             "mapping passes": tot["mapping pass"],
              "global BA (periodic)": periodic_s,
-             "global BA (final two)": tot["global BA"] - periodic_s}
+             "global BA (final two)": sum(c["ms"] for c in gba[n_scan:]) / 1e3}
+    if cfg.loop_detect_every > 0:
+        split.update({"loop probes": probe_s, "loop closures": closure_s})
     per_iter = [c["ms"] / c["lm_iterations"] for c in gba
                 if c["lm_iterations"]]
     fps = (n_frames - chunk) / steady_s
@@ -1601,7 +1743,7 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
     log(f"[{label}] {n_frames} frames; bootstrap on frame {boot}; "
         f"{running:.1%} of later frames RUNNING; {inserted} keyframes "
         f"inserted, {int(valid.sum())} live; {len(pts)} landmarks; "
-        f"{n_periodic} periodic global BA calls; ATE {ate:.5f} over extent "
+        f"{len(periodic)} periodic global BA calls; ATE {ate:.5f} over extent "
         f"{extent:.3f} ({100 * ate / extent:.3f}%); launches {launches}; K1 "
         f"launches by call site {k1_sites}")
     log(f"[{label}] first chunk {first_s:.3f} s; amortised {fps:.3f} "
@@ -1612,16 +1754,32 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
         f"iteration on the host clock (mean of {len(per_iter)} calls); "
         f"max_memory_allocated {peak} B (less the recorded K1 copies; at "
         f"most {mem['slack']} B of them were made during one chunk)")
+    if probes:
+        log(f"[{label}] loop probes (frame, PnP inliers, drift) with >= 10 "
+            f"inliers: " + str([(p["frame"], p["n_inliers"],
+                                 round(p["drift"], 3)) for p in probes
+                                if p.get("n_inliers", 0) >= 10]))
+        log(f"[{label}] {len(probes)} loop probes, {len(closures)} closures; "
+            f"host ms per probe {1e3 * probe_s / len(probes):.3f}, per "
+            f"closure (close_loop and its two global BA calls) "
+            + (f"{1e3 * closure_s / len(closures):.3f}" if closures
+               else "none"))
     log(timer.report())
+    schedule = periodic_schedule(
+        per_chunk, [any(p["closed"] and p["chunk"] == i for p in probes)
+                    for i in range(len(per_chunk))], cfg.global_ba_every)
     checks = {
         "post-bootstrap frames RUNNING >= 95%": running >= 0.95,
         f"keyframes inserted >= {min_keyframes}": inserted >= min_keyframes,
-        "one periodic global BA per global_ba_every insertions":
-            n_periodic == inserted // cfg.global_ba_every,
+        "a periodic global BA after each chunk the schedule names":
+            [c["chunk"] for c in periodic] == schedule,
         "every global BA: finite final_cost <= initial_cost": all(
             np.isfinite(c["final_cost"])
             and c["final_cost"] <= c["initial_cost"] for c in gba),
-        "sim(3) keyframe ATE < 2% of extent": ate < 0.02 * extent,
+        "two global BA calls per loop closure": all(
+            p["global_ba_calls"] == 2 for p in closures),
+        f"sim(3) keyframe ATE < {ate_limit:.0%} of extent":
+            ate < ate_limit * extent,
         "landmarks finite": len(pts) > 0 and bool(np.isfinite(pts).all()),
     }
     for name in gba_kernels:
@@ -1629,20 +1787,101 @@ def run_longscan(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS,
             c["launches"][name] > 0 for c in gba)
     for name in kernels:
         checks[f"{name} launched by the phase"] = launches[name] > 0
-    run_checks(label, checks)
+    if check:
+        run_checks(label, checks)
     return dict(
-        frames=n_frames, fps=fps, first_chunk_s=first_s,
+        checks=checks, frames=n_frames, fps=fps, first_chunk_s=first_s,
         running=running, bootstrap_frame=boot, keyframes_inserted=inserted,
         keyframes_live=int(valid.sum()), landmarks=len(pts),
         ate_pct=100 * ate / extent, extent=extent, split_s=split,
         mapping_passes=timer.counts["mapping pass"],
-        global_ba_calls=gba, periodic_global_ba_calls=n_periodic,
+        global_ba_calls=gba, periodic_global_ba_calls=len(periodic),
         global_ba_host_ms_per_lm_iter=float(np.mean(per_iter))
         if per_iter else None, max_memory_allocated=peak,
         max_memory_slack=mem["slack"] if cuda else None,
         launches=launches, mapping_launches=map_launches, k1_sites=k1_sites,
+        loop_probes=probes,
         keep=dict(state=kept_state, cam=eng.cam, recorded=recorded,
-                  engine=eng, tail=tail))
+                  engine=eng, tail=tail, before=before,
+                  truth=(rvecs, tvecs)))
+
+
+def loop_k1_launches(k1_sites):
+    """K1's launches at the loop probe's call sites (engine/loop.py)."""
+    return sum(n for site, n in k1_sites.items() if site.startswith("loop."))
+
+
+def run_ring(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS, K=K,
+             n_frames=RING_FRAMES, orbit=RING_FRAMES, workers=RENDER_WORKERS,
+             k1_calls=None, min_closures=1, closure_deg=RING_CLOSURE_DEG,
+             max_drift=RING_MAX_DRIFT, min_keyframes=LONGSCAN_MIN_KEYFRAMES,
+             check=True):
+    """The ring: ``RING`` (bench_loop_closure's configuration) over the
+    first ``n_frames`` frames of its outward-looking orbit of ``orbit``
+    frames, through ``run_longscan`` (its checks, with the ATE under 5% of
+    the extent), with K1's calls at the loop probe's site recorded into
+    ``k1_calls``.  Then: >= ``min_closures`` loop closures, each at a frame
+    past ``closure_deg`` degrees of the orbit; the end-of-loop drift after
+    the final global BA (``synthetic.loop_drift``: a similarity fitted on
+    the first quarter of the keyframes) under ``max_drift``; two K1
+    launches at the probe's site per probe.  Also logged: the largest
+    rotation error of one keyframe relative to the next against the
+    ground truth.  Every number is logged before a check can raise; with
+    ``check`` False the checks are returned under "checks"."""
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    from sfm_tpu_torch.synthetic import loop_drift
+    out = run_longscan(torch, dev, cfg, kernels, gba_kernels, K=K,
+                       n_frames=n_frames,
+                       min_keyframes=min_keyframes, workers=workers,
+                       k1_calls=k1_calls, scene="ring", orbit=orbit,
+                       ate_limit=RING_ATE, k1_record_sites=("loop.",),
+                       check=False)
+    keep = out.pop("keep")
+    eng, (rvecs, tvecs), b = keep["engine"], keep["truth"], keep["before"]
+    d_before = loop_drift(b["traj"], b["frame_nos"], rvecs, tvecs)
+    traj, fns = eng.get_trajectory(), eng.keyframe_numbers()
+    d_after = loop_drift(traj, fns, rvecs, tvecs)
+    # keyframe-to-keyframe rotation against the ground truth's (no
+    # alignment needed): a pose gone wrong shows as a step
+    rel = [rodrigues_np(traj[i + 1, :3]) @ rodrigues_np(traj[i, :3]).T
+           @ (rodrigues_np(rvecs[fns[i + 1]])
+              @ rodrigues_np(rvecs[fns[i]]).T).T for i in range(len(fns) - 1)]
+    rot_deg = [np.degrees(np.arccos(np.clip((np.trace(r) - 1) / 2, -1, 1)))
+               for r in rel]
+    worst = int(np.argmax(rot_deg))
+    closures = [p for p in out["loop_probes"] if p["closed"]]
+    first_true = orbit * (closure_deg / 360.0) / RING_TURNS
+    n_probes = len(out["loop_probes"])
+    rows = [(p["frame"], round(p["drift"], 4), p["n_inliers"],
+             round(p["scale"], 4), p["scale_ok"], p["n_pairs"])
+            for p in closures]
+    log(f"[ring] loop closures (frame, drift in map units, inliers, scale, "
+        f"scale_ok, pairs): {rows}; {n_probes} probes; end-of-loop drift "
+        f"before the final global "
+        f"BA {d_before[0]:.4f} m (max {d_before[1]:.4f}), after "
+        f"{d_after[0]:.4f} m (max {d_after[1]:.4f}) over {d_after[2]} "
+        f"keyframes; {out['keyframes_live']} keyframes live, "
+        f"{out['landmarks']} landmarks; K1 at the probe "
+        f"{loop_k1_launches(out['k1_sites'])} launches; largest keyframe-to-"
+        f"keyframe rotation error {rot_deg[worst]:.3f} deg (frames "
+        f"{fns[worst]}-{fns[worst + 1]})")
+    out["checks"].update({
+        f"loop closures >= {min_closures}": len(closures) >= min_closures,
+        f"every closure past {closure_deg:.0f} degrees of the orbit (frame "
+        f">= {first_true:.1f})": all(p["frame"] >= first_true
+                                     for p in closures),
+        f"end-of-loop drift after the final global BA < {max_drift} m":
+            d_after[0] < max_drift,
+        "K1 launched twice per probe at loop.*":
+            loop_k1_launches(out["k1_sites"]) == 2 * n_probes > 0,
+    })
+    out.update(drift_before_m=d_before[0], drift_max_before_m=d_before[1],
+               drift_after_m=d_after[0], drift_max_after_m=d_after[1],
+               closures=closures, probes=n_probes,
+               max_kf_step_rotation_err_deg=rot_deg[worst])
+    if check:
+        run_checks("ring", out["checks"])
+    return out
 
 
 def longscan_device(torch, cfg, out):
@@ -1829,6 +2068,24 @@ def run_cli(torch, dev, H=480, W=640, K=K, n=24, resume_frames=8,
                 resume_points=b["points"])
 
 
+def ring_runs(torch, n):
+    """The ring phase alone, ``n`` times on one card: each run's checks and
+    numbers as a JSON line (its K1 calls are not replayed).  Returns the
+    number of runs that failed a check."""
+    from sfm_tpu_torch.config import RING, SfMConfig
+    failed = 0
+    for i in range(n):
+        out = run_ring(torch, "cuda", SfMConfig(**RING), MAIN_PATH,
+                       check=False)
+        out.pop("global_ba_calls")
+        bad = [k for k, ok in out["checks"].items() if not ok]
+        failed += bool(bad)
+        log(f"[ring] run {i + 1} of {n}: "
+            + (f"FAILED {bad}" if bad else "every check passed"))
+        print(json.dumps({"ring_run": i + 1, **out}), flush=True)
+    return failed
+
+
 def main(argv):
     calls = "--calls" in argv
     if calls:
@@ -1852,11 +2109,16 @@ def main(argv):
         return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
     native.library()
     log(f"kernel build: {native.BUILD_INFO['seconds']:.2f} s "
         f"({native.BUILD_INFO['path']})")
     log(native.BUILD_INFO.get("ptxas", ""))
-    from sfm_tpu_torch.config import FLAGSHIP, LONGSCAN, SLICE, SfMConfig
+    if "--ring" in argv:
+        failed = ring_runs(torch, int(argv[argv.index("--ring") + 1]))
+        print(card[0])
+        return int(failed > 0)
+    from sfm_tpu_torch.config import FLAGSHIP, LONGSCAN, RING, SLICE, SfMConfig
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
                          MAIN_PATH, k1_calls=k1_calls)
@@ -1876,6 +2138,9 @@ def main(argv):
     long_k1_calls = []
     longscan = run_longscan(torch, dev, long_cfg, MAIN_PATH,
                             k1_calls=long_k1_calls)
+    ring_k1_calls = []
+    ring = run_ring(torch, dev, SfMConfig(**RING), MAIN_PATH,
+                    k1_calls=ring_k1_calls)
     # the kernels against their plain versions, with the timings under
     # torch.profiler last: a profiler session leaves the host slower for
     # the host-bound phases after it
@@ -1891,6 +2156,14 @@ def main(argv):
         raise AssertionError("K1: the recorded calls are not the long "
                              "scan's launches")
     del long_k1_calls[:]
+    # the ring's other sites have the long scan's shapes: only the loop
+    # probe's calls are replayed
+    ring_k1 = k1_by_site(torch, ring_k1_calls, "RING")
+    if sum(r["calls"] for r in ring_k1.values()) \
+            != loop_k1_launches(ring["k1_sites"]):
+        raise AssertionError("K1: the recorded calls are not the ring's "
+                             "launches at the loop probe")
+    del ring_k1_calls[:]
     rows.update(check_ba_kernels(torch, dev))
     bench.update(bench_ba_device(torch, bench_once))
     long_dev = longscan_device(torch, long_cfg, longscan)
@@ -1939,7 +2212,18 @@ def main(argv):
             plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
             bound_by=r["bound_by"], library_ms=None,
             shape=f"longscan {label} {' '.join(r['shapes'])}"))
+    # K1 at the loop probe's calls in the ring: 65536 windowless sources,
+    # the old landmarks valid
+    for label, r in ring_k1.items():
+        kernels.append(dict(
+            name="hamming_match", route="cuda", source=source[
+                "hamming_match"][0], replaces=source["hamming_match"][1],
+            launches=r["calls"], max_abs_err=0.0, ms=r["us"] / 1e3,
+            plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
+            bound_by=r["bound_by"], library_ms=None,
+            shape=f"ring {label} {' '.join(r['shapes'])} windowless"))
     longscan.update(device=long_dev, k1_by_site=long_k1)
+    ring.update(k1_by_site=ring_k1)
     print(json.dumps({
         "flagship": {k: v for k, v in flagship.items() if k != "launches"},
         "dense": {k: v for k, v in dense.items() if k != "launches"},
@@ -1952,10 +2236,12 @@ def main(argv):
         "live": live, "flow": {k: v for k, v in flow.items()
                                if k != "launches"}, "cli": cli,
         "cg": {k: v for k, v in cg.items() if k != "launches"},
-        "longscan": longscan,
+        "longscan": longscan, "ring": ring,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
+        f"of the kernel build")
     print(card[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -122,7 +122,7 @@ class SfMConfig:
     global_ba_kmax: int = 0
     global_ba_huber_delta: float = 0.0
 
-    # ---- loop closure (not ported yet) ----
+    # ---- loop closure ----
     loop_detect_every: int = 0
     loop_min_age: int = 30
     loop_min_inliers: int = 25
@@ -193,3 +193,12 @@ LONGSCAN = dict(
     global_ba_kmax=16, global_ba_huber_delta=7.0,
     mapping_tri_keyframes=8, mapping_reobs_keyframes=16,
     mapping_reobs_capacity=8192)
+
+# The loop-closure ring (benchmarks/bench_loop_closure.py's configuration,
+# field for field): LONGSCAN with a loop probe every 8 keyframe insertions
+# against landmarks at least 60 keyframes old, a closure at >= 25 PnP
+# inliers and > 0.3 m of drift, the sim(3) scale on first contact, and
+# covisibility windows in mapping.
+RING = dict(LONGSCAN, loop_detect_every=8, loop_min_age=60,
+            loop_min_inliers=25, loop_min_drift=0.3, loop_use_scale=True,
+            mapping_use_covisibility=True)

@@ -1,6 +1,6 @@
 """Engine: the SLAM state machine (bootstrap, tracking, mapping,
-relocalization) over one state of fixed-capacity tensors, driven from the
-host."""
+relocalization, loop closure) over one state of fixed-capacity tensors,
+driven from the host."""
 
 from .state import (SfMState, CameraParams, METRIC_FIELDS, init_state,
                     make_frame, state_from_numpy, state_to_numpy,
@@ -10,3 +10,5 @@ from .bootstrap import bootstrap_step
 from .tracking import tracking_step
 from .mapping import mapping_pass
 from .reloc import reloc_step
+from .loop import (LoopProbe, build_loop_probe, close_loop,
+                   interpolate_corrections, retriangulate_landmarks)

@@ -6,13 +6,16 @@ frame), keeps the flow reference image in lockstep with the reference
 frame, and runs scan guidance on RGB frames that end RUNNING.
 ``SfMEngine`` mirrors the JAX package's driver: ``add_frame`` (inline
 mapping), ``add_frames`` (a chunk of frames with deferred mapping: the
-mapping pass runs once after the chunk), periodic global BA every
-``global_ba_every`` keyframe insertions (and ``global_ba`` on demand),
-``get_reconstruction``, ``get_trajectory``, and ``save`` / ``load``
-(checkpoints in the JAX package's layout)."""
+mapping pass runs once after the chunk), a loop-closure probe every
+``loop_detect_every`` keyframe insertions (and ``probe_loop_closure`` on
+demand), periodic global BA every ``global_ba_every`` keyframe
+insertions (and ``global_ba`` on demand), ``get_reconstruction``,
+``get_trajectory``, and ``save`` / ``load`` (checkpoints in the JAX
+package's layout)."""
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
@@ -24,28 +27,13 @@ from ..guidance import update_guidance
 from ..mapstore import add_descriptors, landmark_colors
 from .bootstrap import bootstrap_step
 from .global_ba import run_global_ba
+from .loop import LoopProbe, _host, _start_frame, build_loop_probe, close_loop
 from .mapping import mapping_pass
 from .reloc import reloc_step
 from .state import (NOT_INITIALIZED, RUNNING, CameraParams, SfMState,
                     init_state, make_frame, resolve_device, scalar,
                     to_gray)
 from .tracking import tracking_step
-
-_UNPORTED = (
-    ("loop_detect_every", lambda c: c.loop_detect_every > 0,
-     "loop closure"),
-)
-
-
-def check_supported(cfg: SfMConfig) -> None:
-    """Raise NotImplementedError for configuration options whose code is
-    not ported yet (ROADMAP.md names each item)."""
-    for name, off, item in _UNPORTED:
-        if off(cfg):
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported yet "
-                f"(ROADMAP.md, still to port: {item})")
-
 
 def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                image: torch.Tensor, generator: Optional[torch.Generator],
@@ -135,7 +123,6 @@ class SfMEngine:
         if tuple(image_size) != cfg.image_size:
             cfg = SfMConfig(**{**cfg.__dict__, "image_height": image_size[0],
                                "image_width": image_size[1]})
-        check_supported(cfg)
         self.config = cfg
         self.device = resolve_device(device)
         K = np.asarray(K, np.float32)
@@ -151,15 +138,61 @@ class SfMEngine:
         self.state = init_state(cfg, self.device)
         self.metrics_log = []
         self._kfs_since_global_ba = 0
+        self._loop_probe = None     # built on the first probe
+        self._kfs_since_loop_probe = 0
+        self.loop_closures = []     # (frame_no, drift_m, n_inliers)
+        self._corrected_spans = []  # closed (start_fn, loop_fn) spans
 
     def _maybe_global_ba(self, n_new_keyframes: int) -> None:
-        """Periodic global BA: once ``global_ba_every`` keyframes were
-        inserted since the last one."""
+        """After a frame or chunk: the loop probe's schedule first, then
+        periodic global BA once ``global_ba_every`` keyframes were inserted
+        since the last call."""
+        self._maybe_loop_probe(n_new_keyframes)
         if self.config.global_ba_every <= 0:
             return
         self._kfs_since_global_ba += n_new_keyframes
         if self._kfs_since_global_ba >= self.config.global_ba_every:
             self.global_ba()
+
+    def _maybe_loop_probe(self, n_new_keyframes: int) -> None:
+        if self.config.loop_detect_every <= 0:
+            return
+        self._kfs_since_loop_probe += n_new_keyframes
+        if self._kfs_since_loop_probe >= self.config.loop_detect_every:
+            self._kfs_since_loop_probe = 0
+            self.probe_loop_closure()
+
+    def probe_loop_closure(self) -> bool:
+        """Probe the newest keyframe for a loop against old landmarks; on
+        a detection, close the loop (engine/loop.py) and run global BA
+        twice.  Returns True when a loop was closed."""
+        if self._loop_probe is None:
+            self._loop_probe = build_loop_probe(self.config, self.cam,
+                                                self.generator)
+        kfs = self.state.kfs
+        valid = kfs.valid.cpu().numpy()
+        if valid.sum() < 2:
+            return False
+        fns = kfs.frames.frame_no.cpu().numpy()
+        slot = int(np.argmax(np.where(valid, fns, -1)))
+        probe = LoopProbe(*map(_host, self._loop_probe(self.state, slot)))
+        if not bool(probe.ok):
+            return False
+        # each closure's span starts at its matched-landmark era; the
+        # scale is first-contact only (close_loop)
+        span = (_start_frame(fns, valid, probe), int(fns[slot]))
+        self.state = close_loop(self.config, self.cam, self.state, slot,
+                                probe, corrected_spans=self._corrected_spans)
+        self._corrected_spans.append(span)
+        for _ in range(2):
+            self.global_ba()
+        self.loop_closures.append((int(fns[slot]), float(probe.drift),
+                                   int(probe.n_inliers)))
+        print(f"loop closure @ frame {int(fns[slot])}: drift "
+              f"{float(probe.drift):.2f} m, {int(probe.n_inliers)} inliers, "
+              f"scale {float(probe.scale):.3f} (ok={bool(probe.scale_ok)}, "
+              f"{int(probe.n_pairs)} pairs)", file=sys.stderr)
+        return True
 
     def global_ba(self) -> dict:
         """Run global BA on the current map now; returns its stats

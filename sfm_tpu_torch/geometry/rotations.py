@@ -36,7 +36,14 @@ def exp_so3(rvec: torch.Tensor) -> torch.Tensor:
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:
     """Inverse Rodrigues: rotation matrix [..., 3, 3] -> angle-axis
-    [..., 3].  Near pi the axis comes from the diagonal of (R + I) / 2."""
+    [..., 3].  Within 0.035 rad of pi the angle comes from atan2 of the
+    skew and trace parts, the axis from the symmetric part
+    (R + R^T) / 2 - cos(theta) I = (1 - cos(theta)) k k^T, and its sign
+    from the skew part (2 sin(theta) k).  The JAX package takes the axis
+    from the diagonal of (R + I) / 2 with its largest component made
+    positive, which turns a rotation by pi - e about -k into one about
+    +k: an error of 2e, up to 4 degrees, on every pose an outward-looking
+    orbit estimates near half a turn."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     theta = torch.arccos(cos_t)
@@ -47,24 +54,16 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     generic = w * (theta[..., None] / (2.0 * sin_t + _EPS))
     rvec = torch.where(theta[..., None] < 1e-4, w * 0.5, generic)
 
-    d = torch.clamp(torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]],
-                                dim=-1) * 0.5 + 0.5, 0.0, 1.0)
-    axis = torch.sqrt(d)
-    imax = torch.argmax(axis, dim=-1)
-    off = torch.stack([R[..., 1, 0] + R[..., 0, 1],
-                       R[..., 2, 0] + R[..., 0, 2],
-                       R[..., 2, 1] + R[..., 1, 2]], dim=-1)
-    sgn = torch.sign(off + _EPS)
-    one = torch.ones_like(theta)
-    sx = torch.where(imax == 0, one,
-                     torch.where(imax == 1, sgn[..., 0], sgn[..., 1]))
-    sy = torch.where(imax == 1, one,
-                     torch.where(imax == 0, sgn[..., 0], sgn[..., 2]))
-    sz = torch.where(imax == 2, one,
-                     torch.where(imax == 0, sgn[..., 1], sgn[..., 2]))
-    axis = axis * torch.stack([sx, sy, sz], dim=-1)
-    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + _EPS)
-    near_pi = axis * theta[..., None]
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    S = (R + R.transpose(-1, -2)) * 0.5 - cos_t[..., None, None] * eye
+    imax = torch.argmax(torch.diagonal(S, dim1=-2, dim2=-1), dim=-1)
+    col = torch.gather(S, -1, imax[..., None, None].expand(
+        *S.shape[:-1], 1))[..., 0]
+    axis = col / (torch.linalg.norm(col, dim=-1, keepdim=True) + _EPS)
+    axis = torch.where((axis * w).sum(-1, keepdim=True) < 0, -axis, axis)
+    theta_pi = torch.atan2(0.5 * torch.linalg.norm(w, dim=-1),
+                           (trace - 1.0) * 0.5)
+    near_pi = axis * theta_pi[..., None]
     return torch.where(theta[..., None] > 3.1066, near_pi, rvec)
 
 

@@ -1,10 +1,12 @@
 """Synthetic textured-sprite scan generator (numpy only).
 
 A copy of ``sfm_tpu.synthetic``'s ``SpriteScene``, ``strafe_trajectory``
-and ``umeyama_ate``, and of ``benchmarks/bench_longscan.py``'s
-``serpentine_trajectory`` and scene (``longscan_scene``): the same seed
-renders the same frames in both packages, and this copy runs where JAX is
-not installed."""
+and ``umeyama_ate``, of ``benchmarks/bench_longscan.py``'s
+``serpentine_trajectory`` and scene (``longscan_scene``), and of
+``benchmarks/bench_loop_closure.py``'s outward-looking ring orbit
+(``ring_loop_trajectory``, ``ring_scene``, ``centres_of`` and its
+end-of-loop drift measure, ``loop_drift``): the same seed renders the same
+frames in both packages, and this copy runs where JAX is not installed."""
 
 from __future__ import annotations
 
@@ -120,6 +122,69 @@ def longscan_scene(n_frames):
     scene.centers[:, 1] = rng.uniform(-2.0, 2.0 + 0.012 * n_frames, 2600)
     rvecs, tvecs = serpentine_trajectory(n_frames)
     return scene, rvecs, tvecs
+
+
+def ring_loop_trajectory(n_frames, radius=6.0, turns=1.12):
+    """Outward-looking orbit: the camera on a circle of ``radius`` in the
+    x-z plane, looking radially out, ``turns`` > 1 revisiting the start
+    region, with a handheld shake.  Returns (rvecs, tvecs)
+    world-to-camera."""
+    rvecs, tvecs = [], []
+    for k in range(n_frames):
+        ph = 2 * np.pi * turns * k / n_frames
+        shake = np.array([0.028 * np.sin(2 * np.pi * k / 5.0),
+                          0.022 * np.sin(2 * np.pi * k / 7.0),
+                          0.012 * np.sin(2 * np.pi * k / 11.0)])
+        u = np.array([np.sin(ph), 0.0, np.cos(ph)])
+        c = radius * u + shake
+        # camera z-axis = outward radial: R_wc = Ry(ph)
+        R_wc = np.array([[np.cos(ph), 0, np.sin(ph)],
+                         [0, 1, 0],
+                         [-np.sin(ph), 0, np.cos(ph)]])
+        R = R_wc.T
+        rvecs.append(log_rotation(R))
+        tvecs.append((-R @ c).astype(np.float32))
+    return np.asarray(rvecs, np.float32), np.asarray(tvecs, np.float32)
+
+
+def ring_scene(radius=6.0, r_in=10.0, r_out=13.0, n_sprites=2600):
+    """The ring's scene: 2600 sprites of size 0.85 on an annulus of radii
+    10-13 around the orbit, heights -2.5 to 2.5."""
+    rng = np.random.default_rng(7)
+    scene = SpriteScene(rng, n_sprites=n_sprites, sprite_size=0.85)
+    psi = rng.uniform(0, 2 * np.pi, n_sprites)
+    r = rng.uniform(r_in, r_out, n_sprites)
+    scene.centers = np.stack([
+        r * np.sin(psi), rng.uniform(-2.5, 2.5, n_sprites),
+        r * np.cos(psi)], axis=1)
+    return scene
+
+
+def centres_of(rv, tv):
+    """Camera centres [n, 3] of world-to-camera poses."""
+    return np.stack([-rodrigues_np(rv[i]).T @ tv[i] for i in range(len(rv))])
+
+
+def loop_drift(traj, frame_nos, rvecs, tvecs):
+    """End-of-loop drift: the keyframe centres aligned to the ground truth
+    by a similarity fitted on the first quarter of the keyframes only (the
+    drift is not smeared over the loop), then the position error of the
+    last keyframe.  ``traj`` is [n, 6] (rvec, tvec) sorted by
+    ``frame_nos``.  Returns (error at the last keyframe, largest error,
+    keyframes)."""
+    est = centres_of(traj[:, :3], traj[:, 3:])
+    gt = centres_of(rvecs[frame_nos], tvecs[frame_nos])
+    q = max(len(est) // 4, 3)
+    mu_e, mu_g = est[:q].mean(0), gt[:q].mean(0)
+    E, G = est[:q] - mu_e, gt[:q] - mu_g
+    U, D, Vt = np.linalg.svd(G.T @ E / q)
+    sgn = np.eye(3)
+    if np.linalg.det(U @ Vt) < 0:
+        sgn[2, 2] = -1
+    R = U @ sgn @ Vt
+    s = np.trace(np.diag(D) @ sgn) / max((E ** 2).sum() / q, 1e-12)
+    err = np.linalg.norm((s * (R @ (est - mu_e).T)).T + mu_g - gt, axis=1)
+    return float(err[-1]), float(err.max()), len(est)
 
 
 def umeyama_ate(est_t, gt_t):

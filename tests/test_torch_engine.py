@@ -10,6 +10,7 @@
 (d) chip_smoke.py refuses to run without a card."""
 
 import dataclasses
+import importlib
 import os
 import shutil
 import subprocess
@@ -293,22 +294,25 @@ def test_distorted_camera_scan():
 
 def test_flagship_engine_and_unported_solver():
     """SfMEngine takes the FLAGSHIP preset (the large solver), the cg
-    solver and periodic global BA; loop closure still raises, naming its
-    ROADMAP item."""
-    from sfm_tpu_torch.config import FLAGSHIP
+    solver, periodic global BA and loop closure (the RING preset): no
+    option of SfMConfig is refused any more."""
+    from sfm_tpu_torch.config import FLAGSHIP, RING
     K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
                  np.float32)
     eng = SfMEngine(K, (480, 640), config=SfMConfig(**FLAGSHIP),
                     device="cpu")
     assert eng.config.ba_solver == "large" and eng.status == 0
-    for kw in (dict(ba_solver="cg"), dict(global_ba_every=32)):
+    for kw in (dict(ba_solver="cg"), dict(global_ba_every=32),
+               dict(loop_detect_every=8)):
         eng = SfMEngine(K, (480, 640), config=SfMConfig(**{**FLAGSHIP, **kw}),
                         device="cpu")
         assert all(getattr(eng.config, k) == v for k, v in kw.items())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*loop closure"):
-        SfMEngine(K, (480, 640),
-                  config=SfMConfig(**dict(FLAGSHIP, loop_detect_every=8)),
-                  device="cpu")
+    eng = SfMEngine(K, (480, 640), config=SfMConfig(**RING), device="cpu")
+    assert eng.config.loop_detect_every == 8 and eng.loop_closures == []
+    assert eng.probe_loop_closure() is False     # no keyframe yet
+    step = importlib.import_module("sfm_tpu_torch.engine.step")
+    assert not hasattr(step, "_UNPORTED")
+    assert not hasattr(step, "check_supported")
 
 
 def test_imports_without_jax():
@@ -325,6 +329,7 @@ def test_imports_without_jax():
             "import sfm_tpu_torch.io.video, sfm_tpu_torch.io.checkpoint\n"
             "import sfm_tpu_torch.io.runtime, sfm_tpu_torch.io.tum\n"
             "import sfm_tpu_torch.engine.global_ba, sfm_tpu_torch.utils\n"
+            "import sfm_tpu_torch.engine.loop\n"
             "from sfm_tpu_torch.ba import run_ba_cg\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"

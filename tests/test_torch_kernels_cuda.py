@@ -124,6 +124,26 @@ def test_hamming_kernel_reloc_shape(cuda):
     assert int(res.mask.sum()) > 100
 
 
+@pytest.mark.parametrize("targets", ["unlinked", "linked"])
+def test_hamming_kernel_loop_probe_shape(cuda, targets):
+    """The loop probe's two windowless matches (engine/loop.py): all 65536
+    landmark slots of the RING preset (20% valid, the old ones; zero
+    positions) against the keyframe's 512 keypoints, radius 1e9, the
+    targets masked to its unlinked or its linked keypoints."""
+    rng = np.random.default_rng(65536)
+    d0, _, _, d1, xy1, v1 = match_case(rng, 65536, 512)
+    v0 = rng.uniform(0, 1, 65536) < 0.2
+    linked = rng.uniform(0, 1, 512) < 0.6
+    v1 = v1 & (linked if targets == "linked" else ~linked)
+    t = [to_t(a[None]).to(cuda) for a in (
+        d0, np.zeros((65536, 2), np.float32), v0, d1, xy1, v1)]
+    _k1_equal((*t, 0.0, float(np.float32(1e9 * 1e9)), 90.0, 0.8))
+    res = mp.match_features_pallas(*t, min_radius=0.0, max_radius=1e9,
+                                   max_distance=90.0, ratio=0.8)
+    assert int(res.mask.sum()) > 50
+    assert not bool((res.mask & ~t[2]).any())
+
+
 def test_hamming_kernel_window_edges(cuda):
     """Pairs exactly on d2 == max_r2 and on d2 == min_r2 in f32
     (Pythagorean offsets from centres at several magnitudes), and targets

@@ -57,7 +57,8 @@ def bench_longscan():
 
 @pytest.fixture
 def counted(monkeypatch):
-    """K1's and K2's dispatches count their calls on the CPU."""
+    """K1's and K2's dispatches count their calls on the CPU; the counts
+    are zeroed afterwards (other files' tests read them)."""
     real_k1, real_k2 = mp.hamming_match, large.ba_linearize
 
     def k1(*a):
@@ -69,6 +70,8 @@ def counted(monkeypatch):
         return real_k2(*a, **kw)
     monkeypatch.setattr(mp, "hamming_match", k1)
     monkeypatch.setattr(large, "ba_linearize", k2)
+    yield
+    native.reset_launch_counts()
 
 
 def test_longscan_preset_is_bench_longscan_large(bench_longscan):

@@ -101,6 +101,10 @@ def _triples(rng, n):
             np.asarray(tv, f))
 
 
+# the band of rotation angles where log_so3 takes its near-pi branch
+NEAR_PI = 3.1066
+
+
 def test_p3p_candidates_match_jax():
     """Candidate sets compared as sets.  Two float32 programs disagree in
     two ways, both from the conditioning of P3P, not from the port:
@@ -109,7 +113,11 @@ def test_p3p_candidates_match_jax():
     these 200 triples; bounded at 4%); (b) some exact solutions move with
     the last bits of the distance ratios (measured: 12 of 381 candidates
     beyond 1e-4, the largest 6.2e-3; bounded at 5% beyond 1e-4, none
-    beyond 1e-2)."""
+    beyond 1e-2).  JAX candidates whose rotation is within 0.035 rad of
+    pi are left out of that comparison: there the JAX package's log_so3
+    is off (tests/test_torch_geometry.py::test_rotations), so the port's
+    candidates in that band are held instead to reproject their triple
+    within 0.05 px."""
     rng = np.random.default_rng(2)
     xyz, uv, rv, tv = _triples(rng, 200)
     rvs, tvs, ok = (to_np(a) for a in p3p(to_t(TEST_K), to_t(xyz), to_t(uv)))
@@ -117,10 +125,15 @@ def test_p3p_candidates_match_jax():
     fn = jax.jit(jax.vmap(lambda a, b: jax_p3p(jnp.asarray(TEST_K), a, b)))
     rvs_j, tvs_j, ok_j = (np.asarray(a) for a in fn(jnp.asarray(xyz),
                                                     jnp.asarray(uv)))
-    found = compared = 0
+    found = compared = near_pi = 0
     dists = []
     for i in range(200):
         assert not rvs[i][~ok[i]].any() and not tvs[i][~ok[i]].any()
+        for r, t in zip(rvs[i][ok[i]], tvs[i][ok[i]]):
+            if np.linalg.norm(r) > NEAR_PI:
+                uv_c = project_np(TEST_K, rodrigues_np(r.astype(np.float64)),
+                                  t, xyz[i])
+                assert np.abs(uv_c - uv[i]).max() < 0.05
         # the true pose is among the candidates
         err = (np.abs(rvs[i] - rv[i]).max(-1) + np.abs(tvs[i] - tv[i]).max(-1))
         found += bool((err[ok[i]] < 1e-3).any())
@@ -129,11 +142,15 @@ def test_p3p_candidates_match_jax():
         compared += 1
         # the nearest port candidate to each JAX candidate
         for k in np.flatnonzero(ok_j[i]):
+            if np.linalg.norm(rvs_j[i, k]) > NEAR_PI:
+                near_pi += 1
+                continue
             dists.append(np.maximum(
                 np.abs(rvs[i][ok[i]] - rvs_j[i, k]).max(-1),
                 np.abs(tvs[i][ok[i]] - tvs_j[i, k]).max(-1)).min())
     dists = np.asarray(dists)
     assert compared >= 192 and found >= 194, (compared, found)
+    assert near_pi <= 0.02 * len(dists), near_pi
     assert (dists > 1e-4).mean() <= 0.05 and dists.max() < 1e-2, \
         np.sort(dists)[-10:]
 

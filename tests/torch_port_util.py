@@ -172,3 +172,88 @@ def assert_metrics_match(m_t: dict, m_j, rtol=1e-4, atol=1e-4):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+# tests/test_torch_loop*.py: TEST_CFG with a loop probe every 2 keyframe
+# insertions (no landmark reaches the default loop_min_age in the 30-frame
+# scan, so it probes and never closes) and tests/test_torch_global_ba.py's
+# global BA settings
+LOOP_KW = dict(TEST_CFG_KW, loop_detect_every=2, global_ba_iterations=6,
+               global_ba_cg_iterations=15, ba_huber_delta=2.0)
+LOOP_FRAMES = 30
+
+
+def record_probes(eng, frame):
+    """Wrap ``eng.probe_loop_closure``: each call appends the frame index
+    in ``frame[0]`` to the returned list."""
+    calls, real = [], eng.probe_loop_closure
+
+    def wrapped():
+        calls.append(frame[0])
+        return real()
+    eng.probe_loop_closure = wrapped
+    return calls
+
+
+def jax_loop_scan():
+    """The JAX engine at LOOP_KW over LOOP_FRAMES frames of the TEST strafe
+    scan (add_frame): the frames, the camera, the frames after which it
+    probed, and its final state (numpy leaves)."""
+    import jax
+
+    from sfm_tpu.config import SfMConfig
+    from sfm_tpu.engine import SfMEngine
+    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+    scene = SpriteScene(np.random.default_rng(3))
+    rvecs, tvecs = strafe_trajectory(LOOP_FRAMES)
+    frames = [scene.render(TEST_K, rvecs[i], tvecs[i], 240, 320)
+              for i in range(LOOP_FRAMES)]
+    eng = SfMEngine(TEST_K, (240, 320), None, SfMConfig(**LOOP_KW))
+    frame = [0]
+    probes = record_probes(eng, frame)
+    for i, f in enumerate(frames):
+        frame[0] = i
+        eng.add_frame(f)
+    return dict(frames=frames, cam=eng.cam, probes=probes,
+                tree=jax.device_get(eng.state))
+
+
+def loop_state(tree, scale=1.3, shift=0.2):
+    """A scan's numpy state made into a loop at its newest keyframe: every
+    other linked keypoint unlinked (its landmark is then found again by
+    the loop probe's first match), the rest relinked to young twins at
+    1 / ``scale`` of their landmark's position (the pairs of the scale
+    estimate), and the keyframe's stored pose shifted by ``shift``.
+    Returns (a copy of the state, the keyframe slot)."""
+    import copy
+    t = copy.deepcopy(tree)
+    fr, lms = t.kfs.frames, t.lms
+    s = int(np.argmax(np.where(t.kfs.valid, fr.frame_no, -1)))
+    linked = np.nonzero((fr.landmark[s] >= 0) & fr.kp_valid[s])[0]
+    free = np.nonzero(~lms.valid)[0]
+    for j, k in enumerate(linked):
+        if j % 2 == 0:
+            fr.landmark[s, k] = -1
+        else:
+            n = free[j // 2]
+            lms.xyz[n] = lms.xyz[fr.landmark[s, k]] / scale
+            lms.valid[n], lms.kf_alive[n] = True, 0
+            fr.landmark[s, k] = n
+    fr.tvec[s] = fr.tvec[s] + np.float32([shift, 0, 0])
+    return t, s
+
+
+def jitted_jax_retriangulation(monkeypatch):
+    """Patch the JAX package's ``loop.retriangulate_landmarks`` with the
+    same function jitted (eagerly it compiles every op on its first call,
+    ~10 s a shape), also where its ``close_loop`` calls it."""
+    import jax
+
+    from sfm_tpu.engine import loop
+    real, jitted = loop.retriangulate_landmarks, {}
+
+    def retriangulate(cfg, cam, state):
+        if cfg not in jitted:
+            jitted[cfg] = jax.jit(lambda c, s: real(cfg, c, s))
+        return jitted[cfg](cam, state)
+    monkeypatch.setattr(loop, "retriangulate_landmarks", retriangulate)
