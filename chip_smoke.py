@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --calls DIR   # K1 / K5 call times of DIR's package
     python3 chip_smoke.py --ring N      # the ring phase alone, N runs
+    python3 chip_smoke.py --fleet N     # the fleet phase alone, N runs
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
@@ -51,7 +52,21 @@
    recorded); prints the closures, the drift before and after the final
    global BA, the split with loop probes and closures as their own phases
    and the host ms per probe and per closure;
-12. holds each kernel against its plain PyTorch version at the main path's
+12. "fleet": benchmarks/bench_multiscan.py --flagship field for field:
+   MultiScanDriver(FLAGSHIP, batch=64, bucket=8) on its 64 scans (scan b:
+   SpriteScene seed 100 + b, strafe step 0.06 + 0.004 (b % 8)), 40 of its
+   48 frames in chunks of keyframe_time_lag staged as uint8; chunk 0
+   untimed, the others timed, then probe_loops; then scan 0 alone as a
+   fleet of one; checks: every scan bootstraps, >= 90% of the
+   scan-frames after chunk 0 RUNNING, each scan's ATE under 2%, no
+   pending mapping slot after a chunk, no loop closed, exactly 2 K1 and
+   1 K5 launches in every batched tracking step (in the fleet of 64 and
+   in the fleet of one), scan 0 alone with the same statuses, keyframes
+   (+-1) and poses within FLEET_CENTRE_TOL / FLEET_ROT_TOL; prints aggregate frames/s
+   beside the FLAGSHIP single-scan rate of this run, the time split and
+   max_memory_allocated; K1's calls in the timed tracking steps are
+   recorded;
+13. holds each kernel against its plain PyTorch version at the main path's
    shapes and times both, in device time (torch.profiler) and with CUDA
    events, beside the kernel's bound (bytes over the memory rate or
    operations over the core rate, from this run's inputs; the card's clock
@@ -61,11 +76,13 @@
    windowless 8192x512 match included), with the route its rule did not
    pick held and timed too where the window admits both; K1 again on the
    FLAGSHIP scan's and the long scan's own calls and on the ring's loop
-   probe calls (65536 windowless sources), replayed by call site
+   probe calls (65536 windowless sources) and on the fleet's batched
+   calls (64x512x512, 64x2048x512), replayed by call site
    and route (bit for bit, device time per call beside the plain
    version's, bound, the other route, device time lost per scan); K5 bit
    for bit (with F.grid_sample at the same sample
-   positions as the library yardstick), and the BA kernels K2
+   positions as the library yardstick), also at the fleet's batch of 64
+   canvases, and the BA kernels K2
    (linearizer) and K3 (Schur apply:
    full, gather and scatter modes) within 1e-4 of the largest entry and
    bit-identical on a rerun, at the flagship's mapping-BA shape (dead rows
@@ -79,13 +96,15 @@
    gradients also entry by entry, each within GRAD_TOL of the magnitude
    of its own terms); then
    the long scan's last 8 frames fed again from the state before them
-   under torch.profiler, for the card's busy share.  This comes last
+   under torch.profiler, for the card's busy share, and the fleet's last
+   chunk (its tracking steps alone, then the whole chunk) likewise.  This comes last
    because a profiler session leaves the host slower for the host-bound
    phases after it (and a long one disturbs the sessions after it);
-13. prints a JSON line with the phases' numbers, a JSON line with the
+14. prints a JSON line with the phases' numbers, a JSON line with the
    kernels' numbers (the six kernels, then K2 / K3 / K3-gather at the long
-   scan's two shapes, then K1 at the long scan's call sites and at the
-   ring's loop probe), then the card line, then {"ok": true, "device":
+   scan's two shapes, then K1 at the long scan's call sites, at the
+   ring's loop probe and at the fleet's two sites, then K5 at the fleet's
+   shape), then the card line, then {"ok": true, "device":
    {...}} as the last line.
 With ``--calls DIR`` it only times K1's whole call at its five shapes and
 K5's call (device time and device ops per call) for the sfm_tpu_torch
@@ -93,7 +112,9 @@ package under DIR, and prints them as JSON and the card line: the way to
 compare two commits in one run on one card.  With ``--ring N`` it runs
 only the ring phase, N times, and prints each run's checks and numbers
 as a JSON line, then the card line (exit 1 when a run failed a check):
-the spread of a scan whose outcome varies from run to run.
+the spread of a scan whose outcome varies from run to run.  ``--fleet N``
+runs one FLAGSHIP single scan (for the rate beside the fleet's) and the
+fleet phase N times, likewise.
 Any failed check raises, and the script exits non-zero."""
 
 import contextlib
@@ -137,7 +158,10 @@ BA_REL_TOL = 1e-4
 # on g_lm (42 units; a landmark sums at most kmax).  Each limit leaves 3x
 # or more.  An observation missing from an entry moves it by about
 # |r| / |uv| / (its observations) of its magnitude: ~5e-6 for a camera
-# with 350 observations at 0.5 px residuals, ~5e-4 for a landmark.
+# with 350 observations at 0.5 px residuals, ~5e-4 for a landmark.  Both
+# f32 versions sum p = R X + t in float64: in float32 a keyframe ~50 units
+# from the world's origin lost a near point's depth to cancellation, and
+# g_cam read up to 1.4e-6 (kernel) and 9.9e-7 (f32 plain) on that problem.
 GRAD_TOL = {"g_cam": 2.0 ** -20, "g_lm": 2.0 ** -17}
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
 # memory bytes per second, and f32 operations per second outside the
@@ -375,17 +399,22 @@ def k1_bound(torch, args):
 def k5_bound(torch, canvas_s, cx, cy, out):
     """K5's bound on these inputs: the canvas pixels its windows cover
     (the union of the 34 x 34 windows at (cx, cy), inside the canvas: the
-    only pixels it reads), cx and cy read once, the patches written once;
-    9 operations (6 multiplies, 3 adds) per patch value."""
+    only pixels it reads; per canvas for a batch [B, Hc, Wc]), cx and cy
+    read once, the patches written once; 9 operations (6 multiplies, 3
+    adds) per patch value."""
     from sfm_tpu_torch.features.patches_pallas import PATCH, PATCH_RADIUS
-    Hc, Wc = canvas_s.shape
+    Hc, Wc = canvas_s.shape[-2:]
+    cx2, cy2 = cx.reshape(-1, cx.shape[-1]), cy.reshape(-1, cy.shape[-1])
     rr = torch.arange(PATCH + 1, device=cx.device)
-    xs = torch.floor(cx).long()[:, None] - PATCH_RADIUS + rr
-    ys = torch.floor(cy).long()[:, None] - PATCH_RADIUS + rr
-    inside = (((ys >= 0) & (ys < Hc))[:, :, None]
-              & ((xs >= 0) & (xs < Wc))[:, None, :])
-    covered = torch.zeros(Hc * Wc, dtype=torch.bool, device=cx.device)
-    covered[(ys[:, :, None] * Wc + xs[:, None, :])[inside]] = True
+    xs = torch.floor(cx2).long()[..., None] - PATCH_RADIUS + rr
+    ys = torch.floor(cy2).long()[..., None] - PATCH_RADIUS + rr
+    inside = (((ys >= 0) & (ys < Hc))[..., :, None]
+              & ((xs >= 0) & (xs < Wc))[..., None, :])
+    base = torch.arange(cx2.shape[0], device=cx.device)[:, None, None, None]
+    covered = torch.zeros(cx2.shape[0] * Hc * Wc, dtype=torch.bool,
+                          device=cx.device)
+    covered[((base * Hc + ys[..., :, None]) * Wc
+             + xs[..., None, :])[inside]] = True
     window = int(covered.sum()) * canvas_s.element_size()
     return dict(bound(window + nbytes(cx, cy, out), 9 * out.numel()),
                 window_bytes=window)
@@ -1382,6 +1411,26 @@ RING_TURNS = 1.12
 RING_CLOSURE_DEG = 300.0
 RING_MAX_DRIFT = 1.2
 RING_ATE = 0.05
+# the fleet phase: benchmarks/bench_multiscan.py --flagship (64 scans of
+# 48 frames), cut to whole chunks of keyframe_time_lag (40 frames); its
+# gates: RUNNING on >= 90% of the scan-frames after the bootstrap chunk
+# (the single-scan gate), and scan 0 re-run alone within these of its
+# fleet run (PERF.md section 2): camera centres, after the least-squares
+# scale (both runs' world is scan 0's first camera, and monocular scale
+# is free), as a share of the scan's extent (the ATE gate's 2%: each run
+# is held to that against the truth), and rotations in radians.  The
+# runs do not agree bit for bit: the descriptor's products over 64 x 512
+# rows round apart from those over 512 (another cuBLAS kernel), and
+# the bootstrap's dense BA sums with atomics, parting even two runs of one
+# scan; tracking carries the difference on (0.53-0.93% of the extent
+# unscaled and 0.002-0.004 rad in four runs, NVIDIA H100 80GB HBM3,
+# 700 W)
+FLEET_BATCH = 64
+FLEET_ORBIT = 48
+FLEET_FRAMES = 40
+FLEET_RUNNING = 0.9
+FLEET_CENTRE_TOL = 0.02
+FLEET_ROT_TOL = 0.01
 _RENDER = {}
 
 
@@ -1396,24 +1445,44 @@ def scan_scene(name, n_frames):
     return synthetic.longscan_scene(n_frames)
 
 
-def _render_init(name, n_frames, K, H, W):
-    _RENDER.update(scene=scan_scene(name, n_frames), K=K, H=H, W=W)
+def fleet_scans(n_frames, batch):
+    """benchmarks/bench_multiscan.py --flagship's fleet: scan b's
+    (SpriteScene of seed 100 + b, 260 sprites, spread 2.4; its strafe of
+    ``n_frames`` frames at 0.06 + 0.004 (b % 8) per frame)."""
+    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+    return [(SpriteScene(np.random.default_rng(100 + b), n_sprites=260,
+                         spread=2.4),
+             *strafe_trajectory(n_frames, step=0.06 + 0.004 * (b % 8),
+                                yaw_rate=0.001)) for b in range(batch)]
+
+
+def _render_init(name, n_frames, K, H, W, batch=None):
+    scans = fleet_scans(n_frames, batch) if name == "fleet" \
+        else [scan_scene(name, n_frames)]
+    _RENDER.update(scans=scans, fleet=name == "fleet", K=K, H=H, W=W)
 
 
 def _render_chunk(lo, hi):
-    scene, rv, tv = _RENDER["scene"]
-    return np.stack([scene.render(_RENDER["K"], rv[i], tv[i], _RENDER["H"],
-                                  _RENDER["W"]) for i in range(lo, hi)])
+    K, H, W = _RENDER["K"], _RENDER["H"], _RENDER["W"]
+    if _RENDER["fleet"]:
+        # [frames, scans, H, W] uint8, as bench_multiscan stages them
+        return np.stack([np.stack([s.render(K, rv[i], tv[i], H, W)
+                                   for s, rv, tv in _RENDER["scans"]])
+                         for i in range(lo, hi)]).astype(np.uint8)
+    scene, rv, tv = _RENDER["scans"][0]
+    return np.stack([scene.render(K, rv[i], tv[i], H, W)
+                     for i in range(lo, hi)])
 
 
 def rendered_chunks(n_frames, chunk, K, H, W, workers, scene="longscan",
-                    orbit=None):
+                    orbit=None, batch=None):
     """The first ``n_frames`` frames of a scan phase (``scan_scene`` of
-    ``scene`` over ``orbit`` frames, by default ``n_frames``), chunk by
-    chunk, each rendered shortly before it is fed: by ``workers``
-    processes at most 8 chunks ahead, or here when ``workers`` is 0.  The
-    processes end with the generator."""
-    init = (scene, orbit or n_frames, K, H, W)
+    ``scene`` over ``orbit`` frames, by default ``n_frames``; "fleet":
+    the ``batch`` scans of ``fleet_scans``, each chunk uint8 [frames,
+    batch, H, W]), chunk by chunk, each rendered shortly before it is fed:
+    by ``workers`` processes at most 8 chunks ahead, or here when
+    ``workers`` is 0.  The processes end with the generator."""
+    init = (scene, orbit or n_frames, K, H, W, batch)
     spans = [(lo, min(lo + chunk, n_frames))
              for lo in range(0, n_frames, chunk)]
     if workers == 0:
@@ -1884,6 +1953,371 @@ def run_ring(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS, K=K,
     return out
 
 
+def _centres(rvec, tvec):
+    """Camera centres -R^T t of poses [..., 3] (numpy, float64)."""
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    rv = np.asarray(rvec, np.float64).reshape(-1, 3)
+    tv = np.asarray(tvec, np.float64).reshape(-1, 3)
+    return np.stack([-rodrigues_np(r).T @ t for r, t in zip(rv, tv)])
+
+
+def _rot_err(rv0, rv1):
+    """Angles (rad) between rotations given as Rodrigues vectors [n, 3]."""
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    out = []
+    for a, b in zip(np.asarray(rv0, np.float64), np.asarray(rv1, np.float64)):
+        r = rodrigues_np(a) @ rodrigues_np(b).T
+        out.append(np.arccos(np.clip((np.trace(r) - 1) / 2, -1, 1)))
+    return np.asarray(out)
+
+
+def run_fleet(torch, dev, cfg, K=K, batch=FLEET_BATCH, n_frames=FLEET_FRAMES,
+              orbit=FLEET_ORBIT, workers=RENDER_WORKERS, k1_calls=None,
+              single_fps=None, check=True):
+    """The fleet: ``MultiScanDriver(cfg, cam, batch, bucket=8)`` on
+    benchmarks/bench_multiscan.py --flagship's scans (``fleet_scans``; the
+    first ``n_frames`` of their ``orbit`` frames, whole chunks of
+    keyframe_time_lag), every chunk rendered first by the worker pool and
+    staged on the device as uint8 [T, batch, H, W].  ``warmup``, chunk 0
+    untimed (the bootstrap), the other chunks timed one by one as
+    bench_multiscan times its groups (aggregate frames/s: batch x T over
+    the fastest chunk, and over the median), then ``probe_loops`` once.
+    The launches of K1 and K5 are counted in each batched tracking step
+    (and K1's by call site), and K1's calls in the timed steps recorded
+    into ``k1_calls`` when given.  Then scan 0 alone, as a fleet of one,
+    on the same frames.  Checks: every scan bootstraps; >= FLEET_RUNNING
+    of the scan-frames after chunk 0 RUNNING; each scan with >= 3
+    keyframes under 2% sim(3) keyframe ATE; no pending mapping slot after
+    any chunk; no loop closed; K1 launched twice and K5 once in every
+    batched tracking step, in the fleet and in the fleet of one; scan 0
+    alone with the same status on every frame, the same keyframes but at
+    most one, and its tracked poses within FLEET_CENTRE_TOL (centres,
+    after the least-squares scale) and FLEET_ROT_TOL.  Returns the
+    numbers (the checks under "checks"; raised unless ``check`` is False)
+    and under "keep" the state before the last chunk with its frames."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.engine.state import RUNNING, CameraParams, index_state
+    from sfm_tpu_torch.mapstore import tree_map
+    from sfm_tpu_torch.parallel import MultiScanDriver
+    from sfm_tpu_torch.synthetic import keyframe_ate
+    from sfm_tpu_torch.utils import PhaseTimer
+
+    H, W = cfg.image_size
+    T = cfg.keyframe_time_lag
+    n_frames -= n_frames % T
+    cuda = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    staged = [torch.as_tensor(c, device=dev) for c in rendered_chunks(
+        n_frames, T, K, H, W, workers, scene="fleet", orbit=orbit,
+        batch=batch)]
+    render_s = time.perf_counter() - t0
+    truth = [(rv, tv) for _, rv, tv in fleet_scans(orbit, batch)]
+    Kt = torch.as_tensor(K)
+    cam = CameraParams(K=Kt, d=torch.zeros(5), Kopt=Kt)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def counted(drv, steps, rec=None, recording=None, k1_sites=None):
+        """Wrap drv's batched tracking step: per call, the K1 and K5
+        launches (and K1's by site), and the K1 calls recorded meanwhile
+        while ``recording[0]``."""
+        real = drv._track
+
+        def track(images):
+            n0 = dict(native.LAUNCHES)
+            s0 = dict(k1_sites or {})
+            r0 = len(rec) if rec is not None else 0
+            out = real(images)
+            steps.append(dict(
+                hamming_match=native.LAUNCHES["hamming_match"]
+                - n0["hamming_match"],
+                patch_sampler=native.LAUNCHES["patch_sampler"]
+                - n0["patch_sampler"],
+                sites={k: v - s0.get(k, 0) for k, v in (k1_sites or {}).items()
+                       if v != s0.get(k, 0)}))
+            if rec is not None and recording[0]:
+                k1_calls.extend(rec[r0:])
+            return out
+        drv._track = track
+
+    drv = MultiScanDriver(cfg, cam, batch=batch, bucket=8, device=dev)
+    drv.warmup(staged[0])
+    steps, recording = [], [False]
+    rec = [] if k1_calls is not None else None
+    k1_sites, restore = count_k1_sites(native, rec)
+    counted(drv, steps, rec, recording, k1_sites)
+    ms, pending_ok, group_s = [], [], []
+    try:
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        ms.append(drv.step_chunk(staged[0]))
+        sync(torch, dev)
+        boot_s = time.perf_counter() - t0
+        pending_ok.append(bool((drv.states.pending_map_slot == -1).all()))
+        n_boot_steps = len(steps)
+        drv.timer = PhaseTimer()
+        recording[0] = True
+        for i, ch in enumerate(staged[1:]):
+            if i == len(staged) - 2:
+                kept = tree_map(torch.clone, drv.states)
+            if rec is not None:
+                del rec[:]
+            t0 = time.perf_counter()
+            ms.append(drv.step_chunk(ch))
+            sync(torch, dev)
+            group_s.append(time.perf_counter() - t0)
+            pending_ok.append(bool(
+                (drv.states.pending_map_slot == -1).all()))
+        recording[0] = False
+        launches = dict(native.LAUNCHES)
+        t0 = time.perf_counter()
+        closed = drv.probe_loops()
+        probe_s = time.perf_counter() - t0
+    finally:
+        restore()
+        del drv._track
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    split = drv.timer.summary()
+
+    status = np.concatenate([m["status"].cpu().numpy() for m in ms])
+    # each keyframe inserted in a timed chunk is one mapping pass there
+    passes = int(sum(m["keyframe_added"].sum() for m in ms[1:]))
+    post = status[T:]
+    running = float((post == RUNNING).mean())
+    booted = bool((status == RUNNING).any(0).all())
+    kfs_n = drv.states.kfs.valid.sum(-1).cpu().numpy()
+    ates, kf_numbers = [], []
+    for b in range(batch):
+        kfs = index_state(drv.states, b).kfs
+        valid = kfs.valid.cpu().numpy()
+        fns = kfs.frames.frame_no.cpu().numpy()[valid]
+        order = np.argsort(fns)
+        kf_numbers.append(fns[order].tolist())
+        if valid.sum() < 3:
+            ates.append(None)
+            continue
+        traj = np.concatenate([kfs.frames.rvec.cpu().numpy()[valid],
+                               kfs.frames.tvec.cpu().numpy()[valid]],
+                              1)[order]
+        ate, extent = keyframe_ate(traj, fns[order], *truth[b])
+        ates.append(ate / extent)
+    ate_pct = [100 * a for a in ates if a is not None]
+    rates = [T / s for s in group_s]
+    timed = steps[n_boot_steps:]
+    per_step = {(s["hamming_match"], s["patch_sampler"]) for s in timed}
+    sites = {}
+    for s in timed:
+        for k, v in s["sites"].items():
+            sites[k] = sites.get(k, 0) + v
+    fps_best = batch * max(rates)
+    fps_median = batch * float(np.median(rates))
+    log(f"[fleet] {batch} scans x {n_frames} frames ({len(staged)} chunks "
+        f"of {T}; rendered and staged as uint8 in {render_s:.1f} s); "
+        f"bootstrap chunk {boot_s:.2f} s; every scan bootstrapped: "
+        f"{booted}; {running:.1%} of the {post.size} scan-frames after it "
+        f"RUNNING; keyframes per scan {int(kfs_n.min())}-{int(kfs_n.max())}"
+        f"; ATE {min(ate_pct):.3f}-{max(ate_pct):.3f}% of extent over "
+        f"{len(ate_pct)} scans (median {np.median(ate_pct):.3f}%)")
+    log(f"[fleet] timed chunks {', '.join(f'{x:.3f}' for x in group_s)} s: "
+        f"aggregate {fps_best:.1f} frames/s (fastest chunk), "
+        f"{fps_median:.1f} (median)"
+        + (f"; the single-scan FLAGSHIP rate of this run {single_fps:.2f} "
+           f"frames/s ({fps_best / single_fps:.1f}x)" if single_fps else ""))
+    map_ms = 1e3 * split["mapping"]["total_s"] / max(passes, 1)
+    step_ms = 1e3 * split["tracking"]["total_s"] / max(len(timed), 1)
+    log(f"[fleet] split over the timed chunks: " + ", ".join(
+        f"{k} {v['total_s']:.3f} s ({v['count']} calls)"
+        for k, v in split.items()) + f"; {passes} mapping passes "
+        f"({map_ms:.1f} ms each), {step_ms:.1f} ms per batched tracking "
+        f"step; probe_loops {probe_s:.3f} s, "
+        f"closed {closed}; peak memory "
+        + (f"{peak / 2 ** 30:.2f} GiB" if peak is not None else "n/a"))
+    log(f"[fleet] K1 / K5 launches per batched tracking step "
+        f"{sorted(per_step)}; K1 by site over the timed steps {sites}; "
+        f"the phase's launches {launches}")
+
+    # scan 0 alone, as a fleet of one, on the same frames
+    one = MultiScanDriver(cfg, cam, batch=1, bucket=8, device=dev)
+    one_steps = []
+    counted(one, one_steps)
+    try:
+        ms1 = [one.step_chunk(ch[:, :1]) for ch in staged]
+    finally:
+        del one._track
+    status1 = np.concatenate([m["status"].cpu().numpy() for m in ms1])[:, 0]
+    kfs1 = one.states.kfs
+    v1 = kfs1.valid[0].cpu().numpy()
+    kf1 = np.sort(kfs1.frames.frame_no[0].cpu().numpy()[v1]).tolist()
+    both = (status[:, 0] == RUNNING) & (status1 == RUNNING)
+    pose = {k: np.concatenate([m[k][:, 0].cpu().numpy() for m in ms])[both]
+            for k in ("rvec", "tvec")}
+    pose1 = {k: np.concatenate([m[k][:, 0].cpu().numpy() for m in ms1])[both]
+             for k in ("rvec", "tvec")}
+    c0 = _centres(pose["rvec"], pose["tvec"])
+    c1 = _centres(pose1["rvec"], pose1["tvec"])
+    extent0 = float(np.linalg.norm(c0[-1] - c0[0])) if len(c0) else 0.0
+    # both runs anchor their world at scan 0's first camera, so scale is
+    # the one free gauge (monocular): centres are compared after the
+    # least-squares scale, rotations as they are
+    sc = float((c0 * c1).sum() / max(float((c1 * c1).sum()), 1e-12)) \
+        if len(c0) else 1.0
+    d_centre = float(np.abs(c0 - sc * c1).max()) if len(c0) else 0.0
+    raw_centre = float(np.abs(c0 - c1).max()) if len(c0) else 0.0
+    d_rot = float(_rot_err(pose["rvec"], pose1["rvec"]).max()) \
+        if len(c0) else 0.0
+    one_per_step = {(s["hamming_match"], s["patch_sampler"])
+                    for s in one_steps}
+    log(f"[fleet] scan 0 alone: status equal on "
+        f"{int((status[:, 0] == status1).sum())} of {n_frames} frames; "
+        f"keyframes {kf1} (in the fleet {kf_numbers[0]}); over the "
+        f"{int(both.sum())} frames both track, the largest difference of "
+        f"a camera centre after the scale {sc:.6f} {d_centre:.3e} "
+        f"({d_centre / max(extent0, 1e-12):.3e} of the extent "
+        f"{extent0:.3f}; unscaled {raw_centre:.3e}), of a rotation "
+        f"{d_rot:.3e} rad; K1 / K5 launches per tracking step "
+        f"{sorted(one_per_step)}")
+    checks = {
+        "every scan bootstraps": booted,
+        f"scan-frames after the bootstrap chunk RUNNING >= "
+        f"{FLEET_RUNNING:.0%}": running >= FLEET_RUNNING,
+        "sim(3) keyframe ATE < 2% of extent for every scan with >= 3 "
+        "keyframes": bool(ate_pct) and max(ate_pct) < 2.0,
+        "no pending mapping slot after any chunk": all(pending_ok),
+        "probe_loops closes nothing": closed == [],
+        "K1 twice and K5 once in every batched tracking step":
+            per_step == {(2, 1)},
+        "the same per tracking step in a fleet of one":
+            one_per_step == {(2, 1)},
+        "scan 0 alone: the same status on every frame":
+            bool((status[:, 0] == status1).all()),
+        "scan 0 alone: the same keyframes but at most one":
+            len(set(kf1) ^ set(kf_numbers[0])) <= 1,
+        f"scan 0 alone: tracked camera centres within {FLEET_CENTRE_TOL} of "
+        f"the extent (after the least-squares scale) and rotations within "
+        f"{FLEET_ROT_TOL} rad":
+            d_centre <= FLEET_CENTRE_TOL * extent0
+            and d_rot <= FLEET_ROT_TOL,
+        "fleet state on the device": drv.states.lms.xyz.device.type
+        == torch.device(dev).type,
+    }
+    out = dict(
+        batch=batch, frames=n_frames, chunk=T, render_s=render_s,
+        bootstrap_chunk_s=boot_s, chunk_s=group_s,
+        aggregate_fps=fps_best, aggregate_fps_median=fps_median,
+        single_scan_fps=single_fps, running=running, booted=booted,
+        keyframes_min=int(kfs_n.min()), keyframes_max=int(kfs_n.max()),
+        ate_pct_max=max(ate_pct), ate_pct_median=float(np.median(ate_pct)),
+        split={k: v["total_s"] for k, v in split.items()},
+        mapping_passes=passes, probe_s=probe_s, closed=closed, max_memory_allocated=peak,
+        k1_sites=sites, launches=launches,
+        tracking_steps=len(timed),
+        alone=dict(max_centre_diff=d_centre, extent=extent0,
+                   max_rot_diff_rad=d_rot, scale=sc,
+                   max_centre_diff_unscaled=raw_centre, keyframes=kf1,
+                   fleet_keyframes=kf_numbers[0]),
+        checks=checks,
+        keep=dict(state=kept, chunk=staged[-1], driver=drv))
+    if check:
+        run_checks("fleet", checks)
+    return out
+
+
+def fleet_k5_row(torch, out):
+    """K5 at the fleet's shape: the batched canvases and keypoints of the
+    last chunk's last frame (64 x [480, 1200], 64 x 512 keypoints), held
+    bit for bit against the plain version and against one kernel call per
+    canvas, and timed beside F.grid_sample on the same samples."""
+    from sfm_tpu_torch.features import patches_pallas as pp
+    from sfm_tpu_torch.features.descriptor import patch_inputs
+    from sfm_tpu_torch.features.detect import detect
+    drv = out["keep"]["driver"]
+    cfg = drv.cfg
+    imgs = out["keep"]["chunk"][-1].to(torch.float32)
+    kps, canvas = detect(imgs, max_keypoints=cfg.max_keypoints,
+                         levels=cfg.pyramid_levels,
+                         threshold=cfg.fast_threshold,
+                         nms_radius=cfg.nms_radius, return_canvas=True)
+    canvas_s, cx, cy = patch_inputs(canvas, kps, cfg.pyramid_levels,
+                                    cfg.image_width)
+    a = pp.extract_patches_kernel(canvas_s, cx, cy)
+    b = pp.extract_patches_plain(canvas_s, cx, cy)
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    if not torch.equal(a, b):
+        raise AssertionError(f"K5 fleet: differs from the plain version "
+                             f"(max abs err {err})")
+    for i in range(canvas_s.shape[0]):
+        if not torch.equal(a[i], pp.extract_patches_kernel(
+                canvas_s[i], cx[i], cy[i])):
+            raise AssertionError(f"K5 fleet: canvas {i} differs from its "
+                                 f"own call")
+    t = timed(torch, lambda: pp.extract_patches_plain(canvas_s, cx, cy),
+              lambda: pp.extract_patches_kernel(canvas_s, cx, cy),
+              ops_ok=lambda n: n == 1)
+    F = torch.nn.functional
+    B, Hc, Wc = canvas_s.shape
+    r = torch.arange(-pp.PATCH_RADIUS, pp.PATCH_RADIUS + 1, device="cuda",
+                     dtype=torch.float32)
+    gx = (cx[..., None, None] + r[None, None, None, :]).expand(
+        -1, -1, pp.PATCH, -1)
+    gy = (cy[..., None, None] + r[None, None, :, None]).expand(
+        -1, -1, -1, pp.PATCH)
+    grid = torch.stack([2 * gx / (Wc - 1) - 1, 2 * gy / (Hc - 1) - 1], -1)
+    grid = grid.reshape(B, -1, pp.PATCH, 2).contiguous()
+    img = canvas_s[:, None]
+
+    def library():
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+    lib_err = float((library().reshape(a.shape) - b).abs().max())
+    lib_ms = device_ms(torch, library)
+    bd = k5_bound(torch, canvas_s, cx, cy, a)
+    row = dict(shape=f"fleet {B} x {cx.shape[-1]} kp, canvases "
+                     f"{tuple(canvas_s.shape)}",
+               max_abs_err=err, library_ms=lib_ms,
+               library_max_abs_err=lib_err, **t, **bd)
+    log(f"K5 {row['shape']}: equal to the plain version and to one call "
+        f"per canvas, kernel {us(t['ms'])} device ({t['event_ms']:.4f} ms "
+        f"events), plain {us(t['plain_ms'])} device; F.grid_sample "
+        f"{us(lib_ms)} device (max abs diff {lib_err:.2e}); bound "
+        f"{us(bd['bound_ms'])} ({bd['bound_by']}: {bd['bytes']} B of which "
+        f"{bd['window_bytes']} B of canvas windows, {bd['ops']} ops)"
+        f"{share(bd['bound_ms'], t['ms'])}")
+    return row
+
+
+def fleet_device(torch, out):
+    """Last of all (a profiler session spoils the host-bound phases after
+    it): from the fleet's state before its last chunk, the chunk's batched
+    tracking steps alone and then the whole chunk, each under
+    torch.profiler: the card's busy share of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sfm_tpu_torch.mapstore import tree_map
+    keep = out.pop("keep")
+    drv, chunk = keep["driver"], keep["chunk"]
+    res = {}
+    for what in ("tracking steps", "chunk"):
+        drv.states = tree_map(torch.clone, keep["state"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if what == "chunk":
+                drv.step_chunk(chunk)
+            else:
+                for img in chunk:
+                    drv.states, _ = drv._track(img.to(torch.float32))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(getattr(e, "self_device_time_total", 0)
+                   or getattr(e, "self_cuda_time_total", 0)
+                   for e in prof.key_averages()) / 1e6
+        res[what] = dict(profiled_s=wall, busy_s=busy, busy_share=busy / wall)
+        log(f"[fleet] the last chunk's {what} again under torch.profiler: "
+            f"{wall:.3f} s, the card busy {busy:.3f} s ({busy / wall:.1%})")
+    return res
+
+
 def longscan_device(torch, cfg, out):
     """After the profiled kernel checks: global BA on the long scan's state
     before its final calls, once on the host clock (its LM iterations
@@ -2086,6 +2520,28 @@ def ring_runs(torch, n):
     return failed
 
 
+def fleet_runs(torch, n):
+    """The fleet phase alone, ``n`` times on one card, after one FLAGSHIP
+    single-scan run for the rate beside it: each run's checks and numbers
+    as a JSON line (its K1 calls are not replayed).  Returns the number of
+    runs that failed a check."""
+    from sfm_tpu_torch.config import FLAGSHIP, SfMConfig
+    single = run_slice(torch, "cuda", SfMConfig(**FLAGSHIP), "flagship",
+                       MAIN_PATH)
+    failed = 0
+    for i in range(n):
+        out = run_fleet(torch, "cuda", SfMConfig(**FLAGSHIP),
+                        single_fps=single["fps"], check=False)
+        out.pop("keep")
+        bad = [k for k, ok in out.pop("checks").items() if not ok]
+        failed += bool(bad)
+        log(f"[fleet] run {i + 1} of {n}: "
+            + (f"FAILED {bad}" if bad else "every check passed"))
+        print(json.dumps({"fleet_run": i + 1, "failed": bad, **out},
+                         default=str), flush=True)
+    return failed
+
+
 def main(argv):
     calls = "--calls" in argv
     if calls:
@@ -2118,6 +2574,10 @@ def main(argv):
         failed = ring_runs(torch, int(argv[argv.index("--ring") + 1]))
         print(card[0])
         return int(failed > 0)
+    if "--fleet" in argv:
+        failed = fleet_runs(torch, int(argv[argv.index("--fleet") + 1]))
+        print(card[0])
+        return int(failed > 0)
     from sfm_tpu_torch.config import FLAGSHIP, LONGSCAN, RING, SLICE, SfMConfig
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
@@ -2141,6 +2601,9 @@ def main(argv):
     ring_k1_calls = []
     ring = run_ring(torch, dev, SfMConfig(**RING), MAIN_PATH,
                     k1_calls=ring_k1_calls)
+    fleet_k1_calls = []
+    fleet = run_fleet(torch, dev, SfMConfig(**FLAGSHIP),
+                      k1_calls=fleet_k1_calls, single_fps=flagship["fps"])
     # the kernels against their plain versions, with the timings under
     # torch.profiler last: a profiler session leaves the host slower for
     # the host-bound phases after it
@@ -2164,9 +2627,19 @@ def main(argv):
         raise AssertionError("K1: the recorded calls are not the ring's "
                              "launches at the loop probe")
     del ring_k1_calls[:]
+    # the fleet's K1 calls in its timed tracking steps: B = 64 scans in a
+    # call, at tracking (64x512x512) and widen (64x2048x512)
+    fleet_k1 = k1_by_site(torch, fleet_k1_calls, "FLEET")
+    if sum(r["calls"] for r in fleet_k1.values()) \
+            != 2 * fleet["tracking_steps"]:
+        raise AssertionError("K1: the recorded calls are not the fleet's "
+                             "tracking steps' launches")
+    del fleet_k1_calls[:]
+    fleet_k5 = fleet_k5_row(torch, fleet)
     rows.update(check_ba_kernels(torch, dev))
     bench.update(bench_ba_device(torch, bench_once))
     long_dev = longscan_device(torch, long_cfg, longscan)
+    fleet["device"] = fleet_device(torch, fleet)
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
@@ -2222,8 +2695,37 @@ def main(argv):
             plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
             bound_by=r["bound_by"], library_ms=None,
             shape=f"ring {label} {' '.join(r['shapes'])} windowless"))
+    # K1 and K5 at the fleet's batched calls; launches are the timed
+    # tracking steps' (one fleet frame each)
+    steps = fleet["tracking_steps"]
+    for label, r in fleet_k1.items():
+        kernels.append(dict(
+            name="hamming_match", route="cuda", source=source[
+                "hamming_match"][0], replaces=source["hamming_match"][1],
+            launches=r["calls"], launches_per_fleet_frame=r["calls"] / steps,
+            max_abs_err=0.0, ms=r["us"] / 1e3, plain_ms=r["plain_us"] / 1e3,
+            bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
+            library_ms=None, other_route=r.get("other_route"),
+            other_route_ms=(r["other_route_us"] / 1e3
+                            if r.get("other_route_us") is not None
+                            else None),
+            shape=f"fleet {label} {' '.join(r['shapes'])}"))
+    r = fleet_k5
+    if r["ms"] is None or r["plain_ms"] is None or r["library_ms"] is None:
+        raise AssertionError("K5 fleet: torch.profiler recorded no device "
+                             "time")
+    kernels.append(dict(
+        name="patch_sampler", route="cuda", source=source["patch_sampler"][0],
+        replaces=source["patch_sampler"][1], launches=steps,
+        launches_per_fleet_frame=1.0, max_abs_err=r["max_abs_err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
+        event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
+        ops_per_call=r["ops_per_call"]))
     longscan.update(device=long_dev, k1_by_site=long_k1)
     ring.update(k1_by_site=ring_k1)
+    fleet.update(k1_by_site=fleet_k1)
+    fleet.pop("checks")
     print(json.dumps({
         "flagship": {k: v for k, v in flagship.items() if k != "launches"},
         "dense": {k: v for k, v in dense.items() if k != "launches"},
@@ -2236,7 +2738,7 @@ def main(argv):
         "live": live, "flow": {k: v for k, v in flow.items()
                                if k != "launches"}, "cli": cli,
         "cg": {k: v for k, v in cg.items() if k != "launches"},
-        "longscan": longscan, "ring": ring,
+        "longscan": longscan, "ring": ring, "fleet": fleet,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))

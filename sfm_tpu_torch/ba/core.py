@@ -237,15 +237,18 @@ def observations_from_keyframe_window(kfs, lm_valid, slots, slot_ok
 def compact_landmarks(lm_valid, capacity: int):
     """Rank live landmark slots into a dense [capacity] range.  Returns
     ``rank`` [L] (slot -> compact id, == capacity for dead or overflow
-    slots) and ``inv`` [capacity] (compact id -> slot, -1 unused)."""
-    L = lm_valid.shape[0]
-    rank = torch.cumsum(lm_valid.to(torch.int64), 0) - 1
+    slots) and ``inv`` [capacity] (compact id -> slot, -1 unused).  A
+    fleet's masks [B, L] give [B, L] and [B, capacity], scan by scan."""
+    L = lm_valid.shape[-1]
+    lead = lm_valid.shape[:-1]
+    rank = torch.cumsum(lm_valid.to(torch.int64), -1) - 1
     ok = lm_valid & (rank < capacity)
     rank = torch.where(ok, rank, capacity)
-    inv = torch.full((capacity + 1,), -1, dtype=torch.int32,
+    inv = torch.full((*lead, capacity + 1), -1, dtype=torch.int32,
                      device=lm_valid.device)
-    inv[rank] = torch.arange(L, dtype=torch.int32, device=lm_valid.device)
-    return rank, inv[:capacity]
+    slots = torch.arange(L, dtype=torch.int32, device=lm_valid.device)
+    inv.scatter_(-1, rank, slots.expand(rank.shape))
+    return rank, inv[..., :capacity]
 
 
 def compact_ba_problem(xyz, lm_valid, obs: Observations, capacity: int):

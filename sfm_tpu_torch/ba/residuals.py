@@ -28,8 +28,13 @@ def residuals_and_jacobians(K, R, tvec, xyz, obs: Observations):
     """Per-observation residual r [O, 2] and blocks A = dr/d(dw, dt)
     [O, 2, 6], B = dr/dX [O, 2, 3].  R [C, 3, 3], tvec [C, 3], xyz [L, 3]."""
     Rc = R[obs.cam_idx]
-    RX = (Rc @ xyz[obs.lm_idx][:, :, None])[..., 0]
-    p = RX + tvec[obs.cam_idx]
+    X = xyz[obs.lm_idx][:, :, None]
+    RX = (Rc @ X)[..., 0]
+    # p = R X + t in float64, rounded once: for a camera far from the
+    # world's origin (|R X| >> |p|) the float32 sum loses a near point's
+    # depth to cancellation, and its residual and Jacobian follow
+    p = ((Rc.double() @ X.double())[..., 0]
+         + tvec[obs.cam_idx].double()).to(RX.dtype)
     z = p[:, 2]
     z_safe = torch.where(torch.abs(z) < 1e-6,
                          torch.where(z < 0, -1e-6, 1e-6).to(z.dtype), z)

@@ -90,7 +90,15 @@ __device__ __forceinline__ Slot linearize_slot(const Intrinsics& in,
   s.RX[0] = R[0] * x0 + R[1] * x1 + R[2] * x2;
   s.RX[1] = R[3] * x0 + R[4] * x1 + R[5] * x2;
   s.RX[2] = R[6] * x0 + R[7] * x1 + R[8] * x2;
-  const float p0 = s.RX[0] + t[0], p1 = s.RX[1] + t[1], z = s.RX[2] + t[2];
+  // p = R X + t in double, rounded once (as ba/residuals.py): for a camera
+  // far from the world's origin (|R X| >> |p|) the float sum loses a near
+  // point's depth to cancellation; products of floats are exact in double
+  const float p0 = (float)((double)R[0] * x0 + (double)R[1] * x1 +
+                           (double)R[2] * x2 + (double)t[0]);
+  const float p1 = (float)((double)R[3] * x0 + (double)R[4] * x1 +
+                           (double)R[5] * x2 + (double)t[1]);
+  const float z = (float)((double)R[6] * x0 + (double)R[7] * x1 +
+                          (double)R[8] * x2 + (double)t[2]);
   const float z_safe = fabsf(z) < 1e-6f ? (z < 0.0f ? -1e-6f : 1e-6f) : z;
   const float iz = 1.0f / z_safe;
   s.r0 = in.fx * p0 * iz + in.skew * p1 * iz + in.cx - u_o;

@@ -16,6 +16,11 @@
 // memory once and every thread lerps from there.  Products and sums are
 // rounded separately (no FMA contraction) so the values equal the plain
 // version's bit for bit.
+//
+// A batch of B canvases [B, Hc, Wc] with N keypoints each is one launch of
+// B * N blocks: block n samples canvas n / N, and its taps outside that
+// canvas read 0 (never the next canvas's rows, as a batch stacked into one
+// tall canvas would).  A single canvas is the case B = 1.
 
 #include <cuda_runtime.h>
 
@@ -27,11 +32,13 @@ constexpr int kWin = kPatch + 1;         // 34
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-patch_kernel(const float* __restrict__ canvas, int Hc, int Wc,
+patch_kernel(const float* __restrict__ canvases, int Hc, int Wc, int N,
              const float* __restrict__ cx, const float* __restrict__ cy,
              float* __restrict__ out) {
   __shared__ float win[kWin * kWin];
   const int n = blockIdx.x;
+  const float* __restrict__ canvas =
+      canvases + (size_t)(n / N) * (size_t)Hc * (size_t)Wc;
   const float fcx = floorf(cx[n]);
   const float fcy = floorf(cy[n]);
   const int x0 = (int)fcx - kRadius;
@@ -64,12 +71,12 @@ patch_kernel(const float* __restrict__ canvas, int Hc, int Wc,
 
 }  // namespace
 
-extern "C" int sfm_extract_patches(const void* canvas, int Hc, int Wc,
-                                   const void* cx, const void* cy, int N,
-                                   void* out, void* stream) {
-  if (N > 0) {
-    patch_kernel<<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(canvas), Hc, Wc,
+extern "C" int sfm_extract_patches(const void* canvas, int B, int Hc,
+                                   int Wc, const void* cx, const void* cy,
+                                   int N, void* out, void* stream) {
+  if (B > 0 && N > 0) {
+    patch_kernel<<<B * N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(canvas), Hc, Wc, N,
         static_cast<const float*>(cx), static_cast<const float*>(cy),
         static_cast<float*>(out));
   }

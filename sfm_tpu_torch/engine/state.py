@@ -25,7 +25,8 @@ from ..features.detect import detect
 from ..geometry.camera import undistort_pixels
 from ..guidance import GuidanceState, init_guidance
 from ..mapstore import (Frame, KeyframeStore, LandmarkStore, _Tree,
-                        empty_frame, empty_keyframes, empty_landmarks)
+                        empty_frame, empty_keyframes, empty_landmarks,
+                        tree_map)
 
 NOT_INITIALIZED = 0
 RUNNING = 1
@@ -95,6 +96,33 @@ def init_state(cfg: SfMConfig, device) -> SfMState:
     )
 
 
+def init_batched_state(cfg: SfMConfig, batch: int, device) -> SfMState:
+    """A fleet of ``batch`` fresh states: every leaf with a leading scan
+    axis."""
+    return tree_map(lambda x: x.expand((batch,) + x.shape).clone(),
+                    init_state(cfg, device))
+
+
+def stack_states(states) -> SfMState:
+    """Single-scan states -> one state with a leading scan axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *states)
+
+
+def index_state(states: SfMState, b: int) -> SfMState:
+    """Scan ``b`` of a fleet state (views of its leaves)."""
+    return tree_map(lambda x: x[b], states)
+
+
+def write_scan(states: SfMState, b: int, sub: SfMState) -> SfMState:
+    """Write a single-scan state into row ``b`` of a fleet state, in place
+    (the fleet's state is large; its other rows are not touched).  Returns
+    ``states``."""
+    def put(full, new):
+        full[b] = new
+        return full
+    return tree_map(put, states, sub)
+
+
 # the JAX package's StepMetrics: field, dtype and shape, in its order
 METRIC_FIELDS = (
     ("status", torch.int32, ()), ("n_detected", torch.int32, ()),
@@ -115,35 +143,41 @@ def metrics(frame: Frame, **kw) -> dict:
     """Per-frame metrics (tensors on the device; the host fetches a chunk's
     worth at once): ``n_detected`` from the frame, the fields in ``kw``
     cast to their dtypes, zeros elsewhere (as ``zero_metrics()._replace``
-    in the JAX package)."""
+    in the JAX package).  A fleet's frame (leaves [B, N, ...]) gives every
+    field a leading B."""
     dev = frame.kp_valid.device
-    kw.setdefault("n_detected", frame.kp_valid.sum())
+    lead = tuple(frame.kp_valid.shape[:-1])
+    kw.setdefault("n_detected", frame.kp_valid.sum(-1))
     m = {}
     for name, dtype, shape in METRIC_FIELDS:
         v = kw.pop(name, None)
-        m[name] = (torch.zeros(shape, dtype=dtype, device=dev) if v is None
+        full = lead + shape
+        m[name] = (torch.zeros(full, dtype=dtype, device=dev) if v is None
                    else torch.as_tensor(v, device=dev).to(dtype)
-                   .reshape(shape))
+                   .expand(full).clone())
     if kw:
         raise KeyError(f"not a metric: {sorted(kw)}")
     return m
 
 
+def luma(rgb: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB -> [...] luma."""
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
 def to_gray(image: torch.Tensor) -> torch.Tensor:
     """[H, W, 3] RGB -> [H, W] luma; [H, W] grey passes through."""
-    if image.dim() == 3:
-        return (0.299 * image[..., 0] + 0.587 * image[..., 1]
-                + 0.114 * image[..., 2])
-    return image
+    return luma(image) if image.dim() == 3 else image
 
 
-def make_frame(cfg: SfMConfig, cam: CameraParams, image: torch.Tensor,
-               frame_no: torch.Tensor) -> Frame:
-    """Detect, describe, and undistort every keypoint into the Kopt model.
-    ``image`` is [H, W] grey or [H, W, 3] RGB, float32 on the engine's
-    device: detection runs on its luma, and the keypoint colours are sampled
-    from the RGB image (grey replicated otherwise)."""
-    grey = to_gray(image)
+def make_frames(cfg: SfMConfig, cam: CameraParams, images: torch.Tensor,
+                frame_no: torch.Tensor) -> Frame:
+    """``make_frame`` for a fleet: images [B, H, W] grey or [B, H, W, 3]
+    RGB, frame_no [B]; one detection pass and one K5 call for the batch.
+    Every leaf of the Frame has a leading B, and scan b's equals
+    ``make_frame`` of its image alone."""
+    rgb = images.dim() == 4
+    grey = luma(images) if rgb else images
     kps, canvas = detect(grey, max_keypoints=cfg.max_keypoints,
                          levels=cfg.pyramid_levels,
                          threshold=cfg.fast_threshold,
@@ -151,18 +185,36 @@ def make_frame(cfg: SfMConfig, cam: CameraParams, image: torch.Tensor,
     desc = describe_canvas(canvas, kps, cfg.pyramid_levels, cfg.image_width,
                            cfg.desc_bits)
     xy_und = undistort_pixels(cam.K, cam.d, cam.Kopt, kps.xy)
-    xi = torch.clamp(kps.xy[:, 0].to(torch.int64), 0, cfg.image_width - 1)
-    yi = torch.clamp(kps.xy[:, 1].to(torch.int64), 0, cfg.image_height - 1)
-    color = (image[yi, xi] if image.dim() == 3
-             else torch.stack([image[yi, xi]] * 3, dim=-1))
+    xi = torch.clamp(kps.xy[..., 0].to(torch.int64), 0, cfg.image_width - 1)
+    yi = torch.clamp(kps.xy[..., 1].to(torch.int64), 0, cfg.image_height - 1)
+    B, W = images.shape[0], cfg.image_width
+    flat = (yi * W + xi).reshape(B, -1)
+    if rgb:
+        color = torch.gather(images.reshape(B, -1, 3), 1,
+                             flat[..., None].expand(-1, -1, 3))
+    else:
+        color = torch.gather(images.reshape(B, -1), 1, flat)[..., None] \
+            .expand(-1, -1, 3).clone()
+    dev = images.device
     return Frame(
         xy=xy_und, xy_dist=kps.xy, desc=desc, color=color,
         level=kps.level, score=kps.score, kp_valid=kps.valid,
-        landmark=torch.full((cfg.max_keypoints,), -1, dtype=torch.int32,
-                            device=image.device),
-        rvec=torch.zeros(3, device=image.device),
-        tvec=torch.zeros(3, device=image.device),
-        frame_no=frame_no.clone())
+        landmark=torch.full((B, cfg.max_keypoints), -1, dtype=torch.int32,
+                            device=dev),
+        rvec=torch.zeros((B, 3), device=dev),
+        tvec=torch.zeros((B, 3), device=dev),
+        frame_no=frame_no.to(torch.int32).clone())
+
+
+def make_frame(cfg: SfMConfig, cam: CameraParams, image: torch.Tensor,
+               frame_no: torch.Tensor) -> Frame:
+    """Detect, describe, and undistort every keypoint into the Kopt model.
+    ``image`` is [H, W] grey or [H, W, 3] RGB, float32 on the engine's
+    device: detection runs on its luma, and the keypoint colours are sampled
+    from the RGB image (grey replicated otherwise).  The fleet's
+    ``make_frames`` for a batch of one."""
+    return make_frames(cfg, cam, image[None], frame_no[None]).map(
+        lambda x: x[0])
 
 
 # ---------------------------------------------------------------------------

@@ -97,30 +97,32 @@ def _device_tables(bits: int, device):
 
 
 def smooth(img: torch.Tensor, k: int = 5) -> torch.Tensor:
-    """k x k box blur with edge replication, separable: columns then rows,
-    summed centre-out as the JAX package does."""
+    """k x k box blur of [..., H, W] with edge replication, separable:
+    columns then rows, summed centre-out as the JAX package does."""
     r = k // 2
-    H, W = img.shape
+    H, W = img.shape[-2:]
     dev = img.device
     xs = torch.arange(W, device=dev)
     ys = torch.arange(H, device=dev)
     acc = img
     for d in range(1, r + 1):
-        acc = (acc + img.index_select(1, torch.clamp(xs - d, 0, W - 1))
-               + img.index_select(1, torch.clamp(xs + d, 0, W - 1)))
+        acc = (acc + img.index_select(-1, torch.clamp(xs - d, 0, W - 1))
+               + img.index_select(-1, torch.clamp(xs + d, 0, W - 1)))
     out = acc
     for d in range(1, r + 1):
-        out = (out + acc.index_select(0, torch.clamp(ys - d, 0, H - 1))
-               + acc.index_select(0, torch.clamp(ys + d, 0, H - 1)))
+        out = (out + acc.index_select(-2, torch.clamp(ys - d, 0, H - 1))
+               + acc.index_select(-2, torch.clamp(ys + d, 0, H - 1)))
     return out / (k * k)
 
 
 def bits_from_patches(patches: torch.Tensor, desc_bits: int) -> torch.Tensor:
     """Orientation-steered comparison bits from centred patches
-    [N, PATCH, PATCH] -> packed descriptors [N, desc_bits // 32] int32."""
-    N = patches.shape[0]
+    [..., N, PATCH, PATCH] -> packed descriptors [..., N, desc_bits // 32]
+    int32 (the leading rows flattened into one matrix)."""
+    lead = patches.shape[:-2]
     Wpol, Dsel, mx, my = _device_tables(desc_bits, patches.device)
-    flat = patches.reshape(N, -1)
+    flat = patches.reshape(-1, PATCH * PATCH)
+    N = flat.shape[0]
     theta = torch.atan2(flat @ my, flat @ mx)
     shift = torch.remainder(
         torch.round(theta / (2.0 * math.pi / N_PHI)).to(torch.int64), N_PHI)
@@ -131,28 +133,29 @@ def bits_from_patches(patches: torch.Tensor, desc_bits: int) -> torch.Tensor:
     src = torch.remainder(psi[None, :] + shift[:, None], N_PHI)   # [N, N_PHI]
     pol_c = torch.gather(pol, 2, src[:, None, :].expand(N, N_RAD, N_PHI))
     vals = pol_c.reshape(N, -1) @ Dsel.T
-    return pack_bits(vals > 0)
+    return pack_bits(vals > 0).reshape(*lead, -1)
 
 
 def patch_inputs(canvas: torch.Tensor, kps: Keypoints, levels: int,
                  image_width: int):
     """K5's inputs: the smoothed canvas and every keypoint's patch centre
     (cx, cy) in canvas coordinates on its level band (the detection border
-    keeps valid keypoints' patches inside one band)."""
-    lay = canvas_layout(canvas.shape[0], image_width, levels)
-    assert lay.width == canvas.shape[1], "canvas/layout mismatch"
-    scale = torch.exp2(kps.level.to(torch.float32))
-    level_xy = (kps.xy - 0.5 * (scale[:, None] - 1.0)) / scale[:, None]
+    keeps valid keypoints' patches inside one band).  A batch of canvases
+    [B, Hc, Wc] takes keypoints with [B, N] leaves."""
+    lay = canvas_layout(canvas.shape[-2], image_width, levels)
+    assert lay.width == canvas.shape[-1], "canvas/layout mismatch"
+    scale = torch.exp2(kps.level.to(torch.float32))[..., None]
+    level_xy = (kps.xy - 0.5 * (scale - 1.0)) / scale
     offs = torch.as_tensor(np.array(lay.offsets, np.float32),
                            device=canvas.device)
-    cx = level_xy[:, 0] + offs[kps.level.to(torch.int64)]
-    return smooth(canvas), cx.contiguous(), level_xy[:, 1].contiguous()
+    cx = level_xy[..., 0] + offs[kps.level.to(torch.int64)]
+    return smooth(canvas), cx.contiguous(), level_xy[..., 1].contiguous()
 
 
 def describe_canvas(canvas: torch.Tensor, kps: Keypoints, levels: int,
                     image_width: int, desc_bits: int = 512) -> torch.Tensor:
-    """Packed descriptors from the pyramid canvas: one smoothing pass, then
-    K5 samples every keypoint's patch."""
+    """Packed descriptors from the pyramid canvas (or a batch of them):
+    one smoothing pass, then one K5 call samples every keypoint's patch."""
     patches = extract_patches_pallas(
         *patch_inputs(canvas, kps, levels, image_width))
     return bits_from_patches(patches, desc_bits)

@@ -20,6 +20,7 @@ _CIRCLE = ((-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2),
 
 
 class Keypoints(NamedTuple):
+    """Leaves [N, ...], or [B, N, ...] for a batch of images."""
     xy: torch.Tensor      # [N, 2] full-resolution (x, y) pixel coords
     score: torch.Tensor   # [N] detector response
     level: torch.Tensor   # [N] int32 pyramid level
@@ -69,36 +70,37 @@ def canvas_layout(H: int, W: int, levels: int, border: int = 20
 
 
 def _down2(cur: torch.Tensor) -> torch.Tensor:
-    """2x2 box downsample: rows first, then columns (each 0.5 a + 0.5 b,
-    the values the JAX package's averaging matmuls produce)."""
-    h, w = cur.shape
-    cur = cur[:h // 2 * 2, :w // 2 * 2]
-    rows = 0.5 * cur[0::2] + 0.5 * cur[1::2]
-    return 0.5 * rows[:, 0::2] + 0.5 * rows[:, 1::2]
+    """2x2 box downsample of [..., h, w]: rows first, then columns (each
+    0.5 a + 0.5 b, the values the JAX package's averaging matmuls
+    produce)."""
+    h, w = cur.shape[-2:]
+    cur = cur[..., :h // 2 * 2, :w // 2 * 2]
+    rows = 0.5 * cur[..., 0::2, :] + 0.5 * cur[..., 1::2, :]
+    return 0.5 * rows[..., 0::2] + 0.5 * rows[..., 1::2]
 
 
 def build_canvas(img: torch.Tensor, levels: int) -> torch.Tensor:
-    """Grey image [H, W] -> side-by-side pyramid canvas [H, sum(W >> l)]
-    (zero padding below shorter levels)."""
-    H = img.shape[0]
+    """Grey image(s) [..., H, W] -> side-by-side pyramid canvas
+    [..., H, sum(W >> l)] (zero padding below shorter levels)."""
+    H = img.shape[-2]
     cols = [img]
     cur = img
     for _ in range(levels - 1):
         cur = _down2(cur)
-        cols.append(F.pad(cur, (0, 0, 0, H - cur.shape[0])))
-    return torch.cat(cols, dim=1)
+        cols.append(F.pad(cur, (0, 0, 0, H - cur.shape[-2])))
+    return torch.cat(cols, dim=-1)
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """img shifted by (dy, dx) with edge replication."""
-    H, W = img.shape
+    """img [..., H, W] shifted by (dy, dx) with edge replication."""
+    H, W = img.shape[-2:]
     ys = torch.clamp(torch.arange(H, device=img.device) + dy, 0, H - 1)
     xs = torch.clamp(torch.arange(W, device=img.device) + dx, 0, W - 1)
-    return img.index_select(0, ys).index_select(1, xs)
+    return img.index_select(-2, ys).index_select(-1, xs)
 
 
 def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """Dense FAST-9/16 response [H, W]: a pixel is a corner when >= 9
+    """Dense FAST-9/16 response [..., H, W]: a pixel is a corner when >= 9
     contiguous circle pixels are all brighter than centre + t or all darker
     than centre - t; the score is the sum of thresholded absolute
     differences over the circle, gated by the corner test."""
@@ -128,23 +130,30 @@ def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
 
 
 def nms(score: torch.Tensor, radius: int) -> torch.Tensor:
-    """Suppress non-maxima within a (2r+1)^2 window (ties keep all)."""
+    """Suppress non-maxima of [..., H, W] within a (2r+1)^2 window (ties
+    keep all)."""
     k = 2 * radius + 1
-    pooled = F.max_pool2d(score[None, None], k, stride=1, padding=radius)[0, 0]
+    planes = score.reshape(-1, 1, *score.shape[-2:])
+    pooled = F.max_pool2d(planes, k, stride=1,
+                          padding=radius).reshape(score.shape)
     return torch.where(score >= pooled, score, torch.zeros_like(score))
 
 
 def detect(img: torch.Tensor, *, max_keypoints: int, levels: int = 4,
            threshold: float = 20.0, nms_radius: int = 2, border: int = 20,
            return_canvas: bool = False):
-    """Pyramid canvas -> FAST -> NMS -> global top-K -> subpixel
-    refinement.  Keypoints are full-resolution (distorted) pixel coords
-    sorted by descending score; equal scores keep canvas order (the
-    reference's top-k order)."""
-    H, W = img.shape
+    """Pyramid canvas -> FAST -> NMS -> top-K per image -> subpixel
+    refinement, for one image [H, W] or a batch [B, H, W] (each image's
+    keypoints as ``detect`` of that image alone gives them; the leaves
+    then have a leading B).  Keypoints are full-resolution (distorted)
+    pixel coords sorted by descending score; equal scores keep canvas
+    order (the reference's top-k order)."""
+    batched = img.dim() == 3
+    imgs = img if batched else img[None]
+    B, H, W = imgs.shape
     lay = canvas_layout(H, W, levels, border)
     dev = img.device
-    canvas = build_canvas(img, levels)
+    canvas = build_canvas(imgs, levels)
     WC = lay.width
     raw = fast_score(canvas, threshold)
     s = nms(raw, nms_radius) * torch.as_tensor(lay.inside, device=dev)
@@ -153,19 +162,25 @@ def detect(img: torch.Tensor, *, max_keypoints: int, levels: int = 4,
         1e-3 * (levels - 1 - lay.lvl_of_col)[None, :].astype(np.float32),
         device=dev)
     s = torch.where(s > 0, s + bias, torch.zeros_like(s))
-    top_vals, idx = torch.sort(s.reshape(-1), descending=True, stable=True)
-    top_vals, idx = top_vals[:max_keypoints], idx[:max_keypoints]
+    top_vals, idx = torch.sort(s.reshape(B, -1), dim=-1, descending=True,
+                               stable=True)
+    top_vals, idx = top_vals[:, :max_keypoints], idx[:, :max_keypoints]
     yi = idx // WC
     xc = idx % WC
     sel_lvl = torch.as_tensor(lay.lvl_of_col, device=dev)[xc]
     xi = xc - torch.as_tensor(lay.xoff_of_col, device=dev)[xc]
 
     # subpixel: 1D quadratic fit on the pre-NMS score along each axis
-    s0 = raw[yi, xc]
-    sl = raw[yi, torch.clamp(xc - 1, min=0)]
-    sr = raw[yi, torch.clamp(xc + 1, max=WC - 1)]
-    su = raw[torch.clamp(yi - 1, min=0), xc]
-    sd = raw[torch.clamp(yi + 1, max=H - 1), xc]
+    raw_flat = raw.reshape(B, -1)
+
+    def at(y, x):
+        return torch.gather(raw_flat, 1, y * WC + x)
+
+    s0 = at(yi, xc)
+    sl = at(yi, torch.clamp(xc - 1, min=0))
+    sr = at(yi, torch.clamp(xc + 1, max=WC - 1))
+    su = at(torch.clamp(yi - 1, min=0), xc)
+    sd = at(torch.clamp(yi + 1, max=H - 1), xc)
     cx = sl + sr - 2 * s0
     cy = su + sd - 2 * s0
     zero = torch.zeros_like(cx)
@@ -180,6 +195,8 @@ def detect(img: torch.Tensor, *, max_keypoints: int, levels: int = 4,
                       y * scale + 0.5 * (scale - 1.0)], dim=-1)
     kps = Keypoints(xy=xy, score=top_vals, level=sel_lvl.to(torch.int32),
                     valid=top_vals > 0.0)
+    if not batched:
+        kps, canvas = Keypoints(*(t[0] for t in kps)), canvas[0]
     if return_canvas:
         return kps, canvas
     return kps

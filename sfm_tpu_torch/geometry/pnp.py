@@ -13,13 +13,15 @@ from .rotations import exp_so3, hat, log_so3, nearest_rotation
 
 
 def pnp_dlt(K, xyz, uv, w):
-    """Weighted DLT pose.  xyz [N, 3] world, uv [N, 2] pixels, w [..., N]
-    weights (a leading batch of weight masks gives a batch of poses).
-    Returns (rvec [..., 3], tvec [..., 3]).  Needs >= 6 effective,
-    non-coplanar points."""
+    """Weighted DLT pose.  xyz [..., N, 3] world, uv [..., N, 2] pixels, w
+    [..., N] weights, broadcast against each other (a batch of weight masks
+    against one point set gives a batch of poses; a fleet passes its points
+    [B, 1, N, 3] against masks [B, H, N]).  Returns (rvec [..., 3], tvec
+    [..., 3]).  Needs >= 6 effective, non-coplanar points."""
     w = w.to(xyz.dtype)
     Kinv = torch.linalg.inv(K)
-    xn = (torch.cat([uv, torch.ones_like(uv[:, :1])], 1) @ Kinv.T)[:, :2]
+    xn = (torch.cat([uv, torch.ones_like(uv[..., :1])], -1)
+          @ Kinv.T)[..., :2]
     wsum = torch.clamp(torch.sum(w, -1), min=1e-6)
     mean3 = torch.sum(xyz * w[..., None], -2) / wsum[..., None]
     Xc = xyz - mean3[..., None, :]
@@ -27,7 +29,7 @@ def pnp_dlt(K, xyz, uv, w):
     s3 = math.sqrt(3.0) / torch.clamp(scale3, min=1e-9)
     Xn = Xc * s3[..., None, None]
 
-    x, y = xn[:, 0], xn[:, 1]
+    x, y = xn[..., 0], xn[..., 1]
     X0, X1, X2 = Xn.unbind(-1)
     zero, one = torch.zeros_like(X0), torch.ones_like(X0)
     r1 = torch.stack([X0, X1, X2, one, zero, zero, zero, zero,
@@ -124,26 +126,28 @@ def p3p(K, xyz3, uv3):
 
 
 def _pose_residual_jac(K, rvec, tvec, xyz, uv, w):
-    """Masked residuals [N, 2] and pose-Jacobian blocks [N, 2, 6] under the
-    left-multiplicative parameterisation (R <- exp(dw) R, t <- t + dt)."""
+    """Masked residuals [..., N, 2] and pose-Jacobian blocks [..., N, 2, 6]
+    under the left-multiplicative parameterisation (R <- exp(dw) R,
+    t <- t + dt)."""
     R = exp_so3(rvec)
-    RX = xyz @ R.T
-    p = RX + tvec
-    z = p[:, 2]
+    RX = xyz @ R.transpose(-1, -2)
+    p = RX + tvec[..., None, :]
+    z = p[..., 2]
     z_safe = torch.where(torch.abs(z) < 1e-6,
                          torch.where(z < 0, -1e-6, 1e-6).to(z.dtype), z)
     inv_z = 1.0 / z_safe
     fx, fy, skew, cx, cy = K[0, 0], K[1, 1], K[0, 1], K[0, 2], K[1, 2]
-    u = fx * p[:, 0] * inv_z + skew * p[:, 1] * inv_z + cx
-    v = fy * p[:, 1] * inv_z + cy
-    r = (torch.stack([u, v], -1) - uv) * w[:, None]
+    u = fx * p[..., 0] * inv_z + skew * p[..., 1] * inv_z + cx
+    v = fy * p[..., 1] * inv_z + cy
+    r = (torch.stack([u, v], -1) - uv) * w[..., None]
     zero = torch.zeros_like(inv_z)
     duv_dp = torch.stack([
         torch.stack([fx * inv_z, skew * inv_z,
-                     -(fx * p[:, 0] + skew * p[:, 1]) * inv_z * inv_z], -1),
-        torch.stack([zero, fy * inv_z, -fy * p[:, 1] * inv_z * inv_z], -1),
-    ], dim=1)
-    A = torch.cat([duv_dp @ -hat(RX), duv_dp], -1) * w[:, None, None]
+                     -(fx * p[..., 0] + skew * p[..., 1]) * inv_z * inv_z],
+                    -1),
+        torch.stack([zero, fy * inv_z, -fy * p[..., 1] * inv_z * inv_z], -1),
+    ], dim=-2)
+    A = torch.cat([duv_dp @ -hat(RX), duv_dp], -1) * w[..., None, None]
     return r, A
 
 
@@ -151,25 +155,30 @@ def refine_pose(K, rvec, tvec, xyz, uv, w, iters: int = 10,
                 damping: float = 1e-4):
     """Pose-only damped Gauss-Newton on the masked reprojection residual;
     a step is kept only when it lowers the cost.  Fixed trip count, no
-    host synchronisation.  Returns (rvec, tvec)."""
+    host synchronisation.  rvec, tvec [..., 3] against xyz [..., N, 3], uv
+    [..., N, 2], w [..., N] (a fleet: one pose per scan).  Returns (rvec,
+    tvec)."""
     def cost_of(rv, tv):
-        return torch.sum(((project(K, rv, tv, xyz) - uv) * w[:, None]) ** 2)
+        res = (project(K, rv, tv, xyz) - uv) * w[..., None]
+        return torch.sum(res ** 2, dim=(-2, -1))
 
     eye = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
     rv, tv, cost = rvec, tvec, cost_of(rvec, tvec)
     for _ in range(iters):
         r, A = _pose_residual_jac(K, rv, tv, xyz, uv, w)
-        H = torch.einsum("oia,oib->ab", A, A)
-        g = torch.einsum("oia,oi->a", A, r)
-        H = H + damping * torch.diag(torch.diag(H)) + 1e-9 * eye
-        step = torch.linalg.solve_ex(H, g, check_errors=False)[0]
-        rv_new = log_so3(exp_so3(-step[:3]) @ exp_so3(rv))
-        tv_new = tv - step[3:]
+        H = torch.einsum("...oia,...oib->...ab", A, A)
+        g = torch.einsum("...oia,...oi->...a", A, r)
+        H = H + damping * torch.diag_embed(
+            torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-9 * eye
+        step = torch.linalg.solve_ex(H, g[..., None],
+                                     check_errors=False)[0][..., 0]
+        rv_new = log_so3(exp_so3(-step[..., :3]) @ exp_so3(rv))
+        tv_new = tv - step[..., 3:]
         new_cost = cost_of(rv_new, tv_new)
-        ok = new_cost < cost
+        ok = (new_cost < cost)[..., None]
         rv = torch.where(ok, rv_new, rv)
         tv = torch.where(ok, tv_new, tv)
-        cost = torch.where(ok, new_cost, cost)
+        cost = torch.where(ok[..., 0], new_cost, cost)
     return rv, tv
 
 

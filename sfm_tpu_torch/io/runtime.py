@@ -1,12 +1,14 @@
 """Build and load the C++ host runtime: point-cloud export
 (``pc_*``) and the prefetching y4m frame source (``fs_*``).
 
-The sources are the JAX package's ``sfm_tpu/native/pointcloud.cpp`` and
-``framesource.cpp``, read where they stand.  They are compiled with the
-host C++ compiler (``$CXX``, else ``c++``) and the flags of their Makefile
-at first use into ``build/sfm_tpu_torch/<hash>/libsfm_native.so`` at the
-repository root (git-ignored), keyed on a hash of the sources and flags,
-and loaded with ``ctypes``.  Nothing runs at import time, and a failed
+The sources are this package's own copies of the JAX package's
+``native/pointcloud.cpp`` and ``framesource.cpp``, kept byte for byte in
+``sfm_tpu_torch/native_src/``.  They are compiled with the host C++
+compiler (``$CXX``, else ``c++``) and the flags of the JAX package's
+Makefile at first use into ``build/sfm_tpu_torch/<hash>/libsfm_native.so``
+at the repository root (git-ignored), keyed on a hash of the sources (their
+paths in this package and their bytes) and the flags, and loaded with
+``ctypes``.  Nothing runs at import time, and a failed
 build raises: callers choose the numpy versions explicitly instead."""
 
 from __future__ import annotations
@@ -18,10 +20,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-_ROOT = Path(__file__).resolve().parents[2]
-_SOURCES = tuple(_ROOT / "sfm_tpu" / "native" / n
+_PACKAGE = Path(__file__).resolve().parents[1]
+_SOURCES = tuple(_PACKAGE / "native_src" / n
                  for n in ("pointcloud.cpp", "framesource.cpp"))
-_BUILD_ROOT = _ROOT / "build" / "sfm_tpu_torch"
+_BUILD_ROOT = _PACKAGE.parent / "build" / "sfm_tpu_torch"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 _lib = None
 
@@ -48,7 +50,7 @@ def _compiler() -> str:
     if not cxx:
         raise RuntimeError("no host C++ compiler: set CXX or install c++ "
                            "(the native runtime is built from "
-                           "sfm_tpu/native/*.cpp)")
+                           "sfm_tpu_torch/native_src/*.cpp)")
     return cxx
 
 
@@ -57,7 +59,7 @@ def build() -> Path:
     of the sources and flags); returns the library's path."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     for s in _SOURCES:
-        h.update(s.name.encode())
+        h.update(s.relative_to(_PACKAGE).as_posix().encode())
         h.update(s.read_bytes())
     out = _BUILD_ROOT / h.hexdigest()[:16] / "libsfm_native.so"
     if out.exists():

@@ -18,6 +18,7 @@ dropped entries and is sliced off (``_set_drop``)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -39,6 +40,14 @@ class _Tree:
         return type(self)(**{n: fn(getattr(self, n),
                                    *(getattr(o, n) for o in others))
                              for n in _fields(self)})
+
+
+def tree_map(fn, tree, *others):
+    """``fn`` over the tensor leaves of nested ``_Tree`` dataclasses (the
+    counterpart of ``jax.tree.map`` on the JAX package's state)."""
+    if isinstance(tree, _Tree):
+        return tree.map(lambda *xs: tree_map(fn, *xs), *others)
+    return fn(tree, *others)
 
 
 @dataclasses.dataclass
@@ -120,12 +129,29 @@ def empty_landmarks(l: int, desc_bits: int, device) -> LandmarkStore:
     )
 
 
+def _offsets(lead, rows: int, device) -> torch.Tensor:
+    """[..., 1] offset of each scan's first row when a fleet's [..., rows,
+    ...] tensor is flattened to rows; [0] for a single scan."""
+    n = math.prod(lead)
+    return (torch.arange(n, device=device) * rows).reshape(*lead, 1)
+
+
 def _set_drop(t: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """Out-of-place ``t[idx] = vals`` where rows with idx == len(t) are
-    dropped (written into a sentinel row that is sliced off)."""
-    pad = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
-    pad[idx.to(torch.int64)] = vals
-    return pad[:t.shape[0]]
+    dropped (written into a sentinel row that is sliced off).  A fleet
+    passes t [B, L, ...] with idx [B, M] (and vals [B, M, ...]): each scan
+    writes its own rows, with one sentinel row per scan, so a write of
+    scan b never lands in another scan."""
+    lead = tuple(idx.shape[:-1])
+    nb = len(lead)
+    L, rows = t.shape[nb], tuple(t.shape[nb + 1:])
+    pad = torch.cat([t, t.new_zeros(lead + (1,) + rows)], dim=nb)
+    flat = pad.reshape((-1,) + rows)
+    fidx = idx.to(torch.int64) + _offsets(lead, L + 1, t.device)
+    v = torch.as_tensor(vals, device=t.device).to(t.dtype)
+    flat[fidx.reshape(-1)] = v.expand(tuple(idx.shape) + rows).reshape(
+        (-1,) + rows)
+    return pad.narrow(nb, 0, L)
 
 
 # ---------------------------------------------------------------------------
@@ -133,12 +159,14 @@ def _set_drop(t: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def allocate_slots(free: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """For each requested entry (want[j]) a distinct free slot, or -1 on
-    overflow; free slots are handed out in index order."""
-    order = torch.sort((~free).to(torch.int32), stable=True).indices
-    n_free = free.sum()
-    rank = torch.cumsum(want.to(torch.int64), 0) - 1
-    slot = order[torch.clamp(rank, 0, free.shape[0] - 1)]
+    """For each requested entry (want[..., j]) a distinct free slot, or -1
+    on overflow; free slots [..., S] are handed out in index order (per
+    scan for a fleet's leading axis)."""
+    order = torch.sort((~free).to(torch.int32), dim=-1, stable=True).indices
+    n_free = free.sum(-1, keepdim=True)
+    rank = torch.cumsum(want.to(torch.int64), -1) - 1
+    slot = torch.take_along_dim(order, torch.clamp(rank, 0,
+                                                   free.shape[-1] - 1), -1)
     ok = want & (rank < n_free)
     return torch.where(ok, slot, -1).to(torch.int32)
 
@@ -170,20 +198,37 @@ def add_landmarks(lms: LandmarkStore, xyz, desc, want, n_initial_views,
     return new, ids
 
 
+def _flat_ids(ids: torch.Tensor, n_rows: int):
+    """(ok, flat row index) of landmark ids [..., M] (-1 = none) into a
+    store flattened over its leading scan axes."""
+    ok = ids >= 0
+    safe = torch.where(ok, ids, 0).to(torch.int64)
+    return ok, (safe + _offsets(ids.shape[:-1], n_rows, ids.device)
+                ).reshape(-1)
+
+
 def add_descriptors(lms: LandmarkStore, ids, desc, colors=None
                     ) -> LandmarkStore:
     """Stack one observed descriptor (and colour sample) per id >= 0:
-    saturating vote accumulation, clipped to the int8 range."""
-    ok = ids >= 0
-    safe = torch.where(ok, ids, 0).to(torch.int64)
-    votes = _votes(desc).to(torch.int32) * ok[:, None].to(torch.int32)
-    acc = lms.desc_votes.to(torch.int32).index_add(0, safe, votes)
+    saturating vote accumulation, clipped to the int8 range.  ids [..., M]
+    with desc [..., M, W] (a fleet's leading scan axis included)."""
+    L = lms.valid.shape[-1]
+    ok, flat = _flat_ids(ids, L)
+    okf = ok.reshape(-1)
+    votes = _votes(desc).to(torch.int32).reshape(okf.shape[0], -1) \
+        * okf[:, None].to(torch.int32)
+    dv = lms.desc_votes
+    acc = dv.to(torch.int32).reshape(-1, dv.shape[-1]).index_add(0, flat,
+                                                                  votes)
     out = lms.replace(
-        desc_votes=torch.clamp(acc, -127, 127).to(torch.int8),
-        n_desc=lms.n_desc.index_add(0, safe, ok.to(torch.int32)))
+        desc_votes=torch.clamp(acc, -127, 127).to(torch.int8).reshape(
+            dv.shape),
+        n_desc=lms.n_desc.reshape(-1).index_add(
+            0, flat, okf.to(torch.int32)).reshape(lms.n_desc.shape))
     if colors is not None:
-        out = out.replace(color_sum=out.color_sum.index_add(
-            0, safe, colors * ok[:, None]))
+        cs = out.color_sum
+        out = out.replace(color_sum=cs.reshape(-1, 3).index_add(
+            0, flat, colors.reshape(-1, 3) * okf[:, None]).reshape(cs.shape))
     return out
 
 
@@ -194,11 +239,11 @@ def landmark_colors(lms: LandmarkStore) -> torch.Tensor:
 
 
 def add_views(lms: LandmarkStore, ids) -> LandmarkStore:
-    """Bump the tracked-view count of every id >= 0."""
-    ok = ids >= 0
-    safe = torch.where(ok, ids, 0).to(torch.int64)
-    return lms.replace(n_views=lms.n_views.index_add(0, safe,
-                                                     ok.to(torch.int32)))
+    """Bump the tracked-view count of every id >= 0 (ids [..., M])."""
+    ok, flat = _flat_ids(ids, lms.valid.shape[-1])
+    nv = lms.n_views
+    return lms.replace(n_views=nv.reshape(-1).index_add(
+        0, flat, ok.reshape(-1).to(torch.int32)).reshape(nv.shape))
 
 
 def representative_descriptors(lms: LandmarkStore) -> torch.Tensor:
@@ -206,8 +251,9 @@ def representative_descriptors(lms: LandmarkStore) -> torch.Tensor:
     return pack_bits(lms.desc_votes > 0)
 
 
-def increment_age(lms: LandmarkStore, t_inc: int, kf_inc: int
-                  ) -> LandmarkStore:
+def increment_age(lms: LandmarkStore, t_inc, kf_inc) -> LandmarkStore:
+    """Age every live landmark by ``t_inc`` frames and ``kf_inc``
+    keyframes (ints, or per-scan tensors [B, 1] for a fleet)."""
     live = lms.valid.to(torch.int32)
     return lms.replace(t_alive=lms.t_alive + t_inc * live,
                        kf_alive=lms.kf_alive + kf_inc * live)
@@ -257,21 +303,33 @@ def clear_links(frame_landmark, tomb) -> torch.Tensor:
 # keyframe ops
 # ---------------------------------------------------------------------------
 
-def insert_keyframe(kfs: KeyframeStore, frame: Frame
+def insert_keyframe(kfs: KeyframeStore, frame: Frame, want=None
                     ) -> Tuple[KeyframeStore, torch.Tensor]:
     """Snapshot a frame into the first free slot.  Returns (store, slot)
-    with slot == -1 when the store is full."""
-    want = torch.ones(1, dtype=torch.bool, device=kfs.valid.device)
-    slot = allocate_slots(~kfs.valid, want)[0]
-    ok = slot >= 0
-    safe = torch.where(ok, slot, 0).to(torch.int64).reshape(1)
+    with slot == -1 when the store is full.  A fleet passes stores with
+    [B, K] valid masks and a Frame with [B, ...] leaves, and ``want`` [B]:
+    the scans that insert (slot -1 for the others, whose stores are
+    unchanged)."""
+    lead = tuple(kfs.valid.shape[:-1])
+    K = kfs.valid.shape[-1]
+    dev = kfs.valid.device
+    if want is None:
+        want = torch.ones(lead, dtype=torch.bool, device=dev)
+    slot = allocate_slots(~kfs.valid, want[..., None])[..., 0]
+    ok = (slot >= 0).reshape(-1)
+    fidx = (torch.where(slot >= 0, slot, 0).to(torch.int64)[..., None]
+            + _offsets(lead, K, dev)).reshape(-1)
 
     def put(stored, new):
-        updated = stored.index_copy(0, safe, new[None].to(stored.dtype))
-        return torch.where(ok, updated, stored)
+        rest = tuple(stored.shape[len(lead) + 1:])
+        flat = stored.reshape((-1,) + rest)
+        keep = ok.reshape((-1,) + (1,) * len(rest))
+        val = torch.where(keep, new.reshape((-1,) + rest).to(stored.dtype),
+                          flat[fidx])
+        return flat.index_copy(0, fidx, val).reshape(stored.shape)
 
     frames = kfs.frames.map(put, frame)
-    valid = kfs.valid.index_copy(0, safe, (ok | kfs.valid[safe[0]])[None])
+    valid = put(kfs.valid, torch.ones(lead, dtype=torch.bool, device=dev))
     return KeyframeStore(frames=frames, valid=valid), slot
 
 

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "sfm_hamming_match": ("match", [_P, _L] * 6 + [_I, _I, _I, _F, _F, _F, _F,
                                                    _I, _I, _D, _D]
                           + [_P] * 8),
-    "sfm_extract_patches": ("patches", [_P, _I, _I, _P, _P, _I, _P, _P]),
+    "sfm_extract_patches": ("patches", [_P, _I, _I, _I, _P, _P, _I, _P, _P]),
     "sfm_ba_linearize": ("linearize", [_P] * 11 + [_I, _I, _I, _F]
                          + [_P] * 7),
     "sfm_schur_apply": ("schur", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,

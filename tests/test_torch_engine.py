@@ -330,6 +330,7 @@ def test_imports_without_jax():
             "import sfm_tpu_torch.io.runtime, sfm_tpu_torch.io.tum\n"
             "import sfm_tpu_torch.engine.global_ba, sfm_tpu_torch.utils\n"
             "import sfm_tpu_torch.engine.loop\n"
+            "import sfm_tpu_torch.parallel, sfm_tpu_torch.parallel.multiscan\n"
             "from sfm_tpu_torch.ba import run_ba_cg\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"

@@ -318,3 +318,20 @@ def test_cli_refuses_a_missing_device(scan_npy):
         cli.main(["scan", "--input", str(scan_npy / "scan.npy"),
                   "--output", str(scan_npy / "x.ply"),
                   *_FLAGS[:-2], "--device", "cuda"])
+
+
+def test_runtime_builds_from_the_ports_own_sources():
+    """The C++ runtime compiles this package's copies of the JAX package's
+    native sources, never the JAX package's files; the copies are the
+    frozen files byte for byte."""
+    from sfm_tpu_torch.io import runtime
+    port = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "sfm_tpu_torch")
+    jax_native = os.path.join(os.path.dirname(port), "sfm_tpu", "native")
+    assert len(runtime._SOURCES) == 2
+    for src in runtime._SOURCES:
+        path = os.path.realpath(src)
+        assert path.startswith(os.path.realpath(port) + os.sep), path
+        with open(path, "rb") as f, \
+                open(os.path.join(jax_native, src.name), "rb") as g:
+            assert f.read() == g.read(), src.name

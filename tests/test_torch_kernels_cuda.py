@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (TEST_K, ba_scene, match_case,
-                             noisy_copies, rand_desc, to_t)
+from torch_port_util import (TEST_K, ba_scene, far_ba_problem,
+                             gradient_distances, match_case, noisy_copies,
+                             rand_desc, to_t)
 
 from sfm_tpu_torch import native
 from sfm_tpu_torch.ba import linearize_pallas as lp
@@ -282,6 +283,59 @@ def test_patch_kernel_equals_plain(cuda, hc, wc):
     assert native.LAUNCHES["patch_sampler"] == n0 + 2
 
 
+@pytest.mark.parametrize("hc,wc", K5_CANVASES)
+def test_batched_patch_kernel_equals_plain_and_single_calls(cuda, hc, wc):
+    """A batch of canvases in one launch, bit for bit against the batched
+    plain version and against one call per canvas, with windows leaving
+    each canvas on every side (taps there read 0, not the next canvas)."""
+    B, n = 5, 300
+    rng = np.random.default_rng(hc * wc)
+    canvas = to_t(rng.uniform(0, 255, (B, hc, wc)).astype(np.float32)).to(
+        cuda)
+    cx = rng.uniform(-40, wc + 40, (B, n))
+    cy = rng.uniform(-40, hc + 40, (B, n))
+    cx[:, :6] = [-17.5, wc + 16.25, wc / 2, wc / 2, -60, wc + 60]
+    cy[:, :6] = [hc / 2, hc / 2, -12.5, hc + 5.75, -60, hc + 60]
+    cx, cy = (to_t(a.astype(np.float32)).to(cuda) for a in (cx, cy))
+    n0 = native.LAUNCHES["patch_sampler"]
+    out = pp.extract_patches_kernel(canvas, cx, cy)
+    assert native.LAUNCHES["patch_sampler"] == n0 + 1
+    torch.cuda.synchronize()
+    assert out.shape == (B, n, pp.PATCH, pp.PATCH)
+    assert torch.equal(out, pp.extract_patches_plain(canvas, cx, cy))
+    for b in range(B):
+        assert torch.equal(out[b], pp.extract_patches_kernel(canvas[b], cx[b],
+                                                             cy[b]))
+
+
+def test_batched_patch_kernel_at_the_fleet_shape(cuda):
+    """64 canvases of the flagship's 480 x 1200 with 512 keypoints each."""
+    rng = np.random.default_rng(64)
+    canvas = to_t(rng.uniform(0, 255, (64, 480, 1200)).astype(
+        np.float32)).to(cuda)
+    cx = to_t(rng.uniform(-20, 1220, (64, 512)).astype(np.float32)).to(cuda)
+    cy = to_t(rng.uniform(-20, 500, (64, 512)).astype(np.float32)).to(cuda)
+    out = pp.extract_patches_kernel(canvas, cx, cy)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pp.extract_patches_plain(canvas, cx, cy))
+
+
+@pytest.mark.parametrize("shape", [
+    (64, 512, 512, False, 1.5, 40.0, 0.9),     # the fleet's tracking match
+    (64, 2048, 512, True, 0.0, 7.0, 0.9),      # the fleet's widening
+])
+def test_hamming_kernel_at_the_fleet_shapes(cuda, shape, monkeypatch):
+    """K1 at B = 64 with per-scan windows, exact against the plain version
+    through the route the rule picks (cells at these shapes) and through
+    the other one."""
+    args = _k1_args(cuda, *shape)
+    ref = mp.hamming_match_plain(*args) + mp.match_result_plain(*args)
+    assert int(ref[6].sum()) > 0
+    assert _same_as_plain(args, ref) == "cells"
+    monkeypatch.setattr(mp, "CELLS_MIN_PAIRS", float("inf"))
+    assert _same_as_plain(args, ref) == "dense_int"
+
+
 def test_wrappers_refuse_bad_input(cuda):
     canvas = torch.zeros((8, 8), device=cuda)
     cx = torch.zeros(4, device=cuda, dtype=torch.float64)
@@ -365,6 +419,18 @@ def test_linearize_kernel_equals_plain(cuda, C, L, kmax):
         if C <= 1000 or name == "cost":
             _close(a, b)
     assert float(ref[-1]) > 0
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7])
+def test_linearize_kernel_keeps_a_far_cameras_near_points(cuda, seed):
+    """A problem ~230 units from the world's origin at depths of 4-8 (a
+    long scan's late keyframes): the kernel's g_lm and g_cam entry by
+    entry within chip_smoke.py's GRAD_TOL of the plain version run in
+    float64, as the plain version is (test_torch_linearize.py)."""
+    args = far_ba_problem(seed, device=cuda)
+    _, _, g_lm, _, g_cam, _ = lp.ba_linearize_kernel(*args)
+    d_lm, d_cam = gradient_distances(args, g_lm, g_cam)
+    assert d_lm <= 2.0 ** -17 and d_cam <= 2.0 ** -20, (d_lm, d_cam)
 
 
 def _schur_args(cuda, C, L, kmax, idle=(), dead_rows=0.0, seed=None):
@@ -604,3 +670,4 @@ def test_run_ba_cg_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_allclose(float(getattr(a, k)),
                                    float(getattr(b, k)), rtol=1e-4)
     assert int(a.accepted) == int(b.accepted)
+

@@ -8,7 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_port_util import TEST_K, ba_scene, to_np, to_t
+from torch_port_util import (TEST_K, ba_scene, far_ba_problem,
+                             gradient_distances, to_np, to_t)
 
 from sfm_tpu.ba import Observations as JObs
 from sfm_tpu.ba.large import (_blocks_cam_major, _blocks_lm_major,
@@ -108,6 +109,19 @@ def test_k2_matches_xla_blocks(name):
     for a, b in ((W, W_j), (V, V_j), (g_lm, g_j), (U, U_j), (g_cam, gc_j)):
         _close(a, b)
     np.testing.assert_allclose(float(cost), float(cost_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7])
+def test_k2_plain_keeps_a_far_cameras_near_points(seed):
+    """A problem ~230 units from the world's origin at depths of 4-8 (a
+    long scan's late keyframes): K2's g_lm and g_cam entry by entry within
+    chip_smoke.py's GRAD_TOL of the plain version run in float64 (2^-17
+    and 2^-20 of each entry's term magnitude).  With p = R X + t summed in
+    float32 they read 3.7e-5 to 4.7e-5 and 1.0e-6 to 5.1e-6."""
+    args = far_ba_problem(seed)
+    _, _, g_lm, _, g_cam, _ = ba_linearize_plain(*args)
+    d_lm, d_cam = gradient_distances(args, g_lm, g_cam)
+    assert d_lm <= 2.0 ** -17 and d_cam <= 2.0 ** -20, (d_lm, d_cam)
 
 
 def test_k2_dispatch_on_cpu_is_the_plain_version():

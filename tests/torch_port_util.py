@@ -257,3 +257,63 @@ def jitted_jax_retriangulation(monkeypatch):
             jitted[cfg] = jax.jit(lambda c, s: real(cfg, c, s))
         return jitted[cfg](cam, state)
     monkeypatch.setattr(loop, "retriangulate_landmarks", retriangulate)
+
+
+def far_ba_problem(seed, n_cams=12, n_pts=300, kmax=6,
+                   shift=(200.0, 100.0, -50.0), device="cpu"):
+    """``ba_scene``'s problem moved ``shift`` away from the world's origin
+    (X + shift, t - R shift: the same residuals in exact arithmetic), as a
+    long scan's late keyframes lie far from its first: |R X| ~ 230 over
+    depths of 4-8.  Returns K2's arguments (K, R, t, X, lm_free, cam_free,
+    lm_cam, lm_uv, lm_w, Huber delta 2) as float32 tensors on ``device``."""
+    from sfm_tpu_torch.ba.large import build_lm_tables_device
+    from sfm_tpu_torch.ba.residuals import Observations
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    rng = np.random.default_rng(seed)
+    _, init, obs = ba_scene(rng, n_cams, n_pts, kmax, noise_px=0.7,
+                            outlier_p=0.05)
+    d = np.asarray(shift)
+    R = np.stack([rodrigues_np(r) for r in init["rv"].astype(np.float64)])
+    t = init["tv"] - np.einsum("cab,b->ca", R, d)
+    o = Observations(*(to_t(a).to(device) for a in obs))
+    o = o._replace(cam_idx=o.cam_idx.long(), lm_idx=o.lm_idx.long())
+    lm_cam, lm_uv, lm_w, _ = build_lm_tables_device(o, n_pts, kmax)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(TEST_K, **f32), torch.tensor(R, **f32),
+            torch.tensor(t, **f32), torch.tensor(init["X"] + d, **f32),
+            torch.ones(n_pts, **f32), torch.ones(n_cams, **f32), lm_cam,
+            lm_uv, lm_w, 2.0)
+
+
+def gradient_distances(args, g_lm, g_cam):
+    """K2's g_lm and g_cam (``args`` its arguments) entry by entry: the
+    largest distance from the plain version run in float64 over the
+    entry's own term magnitude, sum |J|^T w (|r| + |uv|) with J the
+    weighted Jacobian block (the measure of chip_smoke.py's
+    ``gradient_witness``).  Returns (g_lm's, g_cam's)."""
+    from sfm_tpu_torch.ba.linearize_pallas import ba_linearize_plain
+    from sfm_tpu_torch.ba.residuals import (Observations, huber_weights,
+                                            residuals_and_jacobians)
+    a64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+           for a in args]
+    K, R, t, X, lm_free, cam_free, lm_cam, lm_uv, lm_w, huber = a64
+    C, (L, kmax) = R.shape[0], lm_cam.shape
+    cam = lm_cam.reshape(-1).long().clamp(0, C - 1)
+    lm = torch.arange(L, device=X.device).repeat_interleave(kmax)
+    uv = lm_uv.reshape(-1, 2)
+    r, A, B = residuals_and_jacobians(K, R, t, X,
+                                      Observations(cam, lm, uv,
+                                                   lm_w.reshape(-1)))
+    w = lm_w.reshape(-1) * huber_weights(r, huber)
+    m = ((r.abs() + uv.abs()) * w[:, None])[:, :, None]
+    mag_c = (A.abs() * (w * cam_free[cam])[:, None, None]).transpose(1, 2) @ m
+    mag_l = (B.abs() * (w * lm_free[lm])[:, None, None]).transpose(1, 2) @ m
+    ref = ba_linearize_plain(*a64)
+    out = []
+    for g, j, idx, mag, n in ((g_lm, 2, lm, mag_l, L),
+                              (g_cam, 4, cam, mag_c, C)):
+        scale = torch.zeros((n, mag.shape[1]), dtype=torch.float64,
+                            device=X.device).index_add_(0, idx, mag[..., 0])
+        out.append(float(((g.double() - ref[j]).abs()
+                          / scale.clamp(min=1e-30)).max()))
+    return tuple(out)
