@@ -16,7 +16,9 @@
    against the ground-truth poses), finite landmarks, and that K1, K5, K2,
    K3 and K3-gather were launched by the run (K1's launches also by call
    site);
-4. the same scan under SLICE (the dense BA solver), with its own checks;
+4. the same scan under SLICE (the dense BA solver), with its own checks,
+   twice: the rerun must give the same statuses, keyframes and landmarks
+   bit for bit (the solver sums in a fixed order);
 5. the large solver's second entry point, run_large_ba, at bench_ba.py's
    operating point (1000 cameras, 100k landmarks, 8 LM x 25 CG
    iterations): ms per LM iteration, and the cost must decrease;
@@ -28,6 +30,23 @@
 8. "cli": ``cli.main(["scan", ...])`` on the card with metrics, checkpoint
    and overlay video, then a --resume run, then the PLY files read back
    (the C++ runtime is built before the clock starts);
+8a. "pipeline": the offline scan frame by frame through
+   parallel.pipeline.AsyncMappingEngine (merge_lag 2: the mapping pass on a
+   worker thread's own CUDA stream, merged after two tracked frames), then
+   flush; twice, and once through SfMEngine.add_frame for the inline rate
+   beside it; the offline checks, the merged links and view counts, K2 /
+   K3 / K3-gather launched only from the mapping stream, and the rerun
+   equal bit for bit; prints frames/s, the mapping passes' ms and the
+   share of their time hidden behind tracking;
+8b. "serve": serving.ScanServer on 127.0.0.1 on the card with two clients
+   at once (threads), each INIT with FLAGSHIP minus its image size, 40
+   uint8 RGB strafe frames (16 by FRAME, 24 by FRAMES in chunks of
+   keyframe_time_lag), GET_CLOUD, CLOSE; each served scan equal to the
+   same frames fed in-process to SfMEngine (every frame's metrics, the
+   keyframes, the cloud bit for bit), the cloud coloured, the kernels
+   launched, and FRAME before INIT answered with MSG_ERROR; prints the
+   round trip per frame beside in-process add_frame and the aggregate
+   frames/s;
 9. "cg": the offline scan under FLAGSHIP with ``ba_solver="cg"`` (the
    per-observation PCG solver, torch ops), 40 frames, with the SLICE
    checks and its mapping pass beside the large and dense solvers';
@@ -97,7 +116,8 @@
    of its own terms); then
    the long scan's last 8 frames fed again from the state before them
    under torch.profiler, for the card's busy share, and the fleet's last
-   chunk (its tracking steps alone, then the whole chunk) likewise.  This comes last
+   chunk (its tracking steps alone, then the whole chunk) and the
+   pipeline's scan likewise.  This comes last
    because a profiler session leaves the host slower for the host-bound
    phases after it (and a long one disturbs the sessions after it);
 14. prints a JSON line with the phases' numbers, a JSON line with the
@@ -112,7 +132,8 @@ package under DIR, and prints them as JSON and the card line: the way to
 compare two commits in one run on one card.  With ``--ring N`` it runs
 only the ring phase, N times, and prints each run's checks and numbers
 as a JSON line, then the card line (exit 1 when a run failed a check):
-the spread of a scan whose outcome varies from run to run.  ``--fleet N``
+the spread of a scan over runs, and whether the runs' final maps agree
+bit for bit (exit 1 when they do not).  ``--fleet N``
 runs one FLAGSHIP single scan (for the rate beside the fleet's) and the
 fleet phase N times, likewise.
 Any failed check raises, and the script exits non-zero."""
@@ -1203,6 +1224,7 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
     finally:
         restore()
 
+    digest = state_digest(eng.state)
     status = np.array([int(m["status"]) for m in metrics])
     boot = int(np.argmax(status == 1)) if (status == 1).any() else None
     if boot is None:
@@ -1260,7 +1282,8 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
                 map_ms=float(np.mean(map_ms)),
                 ate_pct=100 * ate / extent, keyframes=n_kf,
                 running=running, bootstrap_frame=boot,
-                ba_dropped_obs=dropped)
+                ba_dropped_obs=dropped, digest=digest,
+                statuses="".join(map(str, status.tolist())))
 
 
 def run_live(torch, dev, cfg, kernels, K=K, before=LIVE_BEFORE,
@@ -1947,7 +1970,8 @@ def run_ring(torch, dev, cfg, kernels, gba_kernels=GLOBAL_BA_KERNELS, K=K,
     out.update(drift_before_m=d_before[0], drift_max_before_m=d_before[1],
                drift_after_m=d_after[0], drift_max_after_m=d_after[1],
                closures=closures, probes=n_probes,
-               max_kf_step_rotation_err_deg=rot_deg[worst])
+               max_kf_step_rotation_err_deg=rot_deg[worst],
+               digest=state_digest(eng.state))
     if check:
         run_checks("ring", out["checks"])
     return out
@@ -2502,22 +2526,396 @@ def run_cli(torch, dev, H=480, W=640, K=K, n=24, resume_frames=8,
                 resume_points=b["points"])
 
 
+# the pipeline phase: tracked frames between a dispatch and its join; the
+# serve phase: frames per client, of which the first go one by one (FRAME)
+# and the rest in chunks of keyframe_time_lag (FRAMES), and the scene
+# seeds of its two clients
+PIPELINE_LAG = 2
+SERVE_FRAMES, SERVE_SINGLE = 40, 16
+SERVE_SEEDS = (11, 12)
+# the kernels that the pipeline's mapping pass launches (all of their
+# launches must come from its stream); K1 runs on both streams
+MAPPING_KERNELS = ("ba_linearize", "schur_apply", "schur_gather")
+# the pipeline's frames profiled for the card's busy share: a keyframe at
+# frame 34 (bit for bit the same in every run) starts a mapping pass
+PIPELINE_PROFILED = (34, 46)
+
+
+def state_digest(state):
+    """A hash of a state's map: keyframe validity, frame numbers, poses and
+    links, landmark validity and positions, and the status.  Equal digests
+    are the same map bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    kfs, lms = state.kfs, state.lms
+    for t in (state.status, kfs.valid, kfs.frames.frame_no, kfs.frames.rvec,
+              kfs.frames.tvec, kfs.frames.landmark, lms.valid, lms.xyz):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:24]
+
+
+def strafe_frames(n_frames, H, W, K=K, rgb=False, seed=11):
+    """The offline phase's scene and strafe (bench.py's workload): frames
+    [n] float32, and the ground-truth (rvecs, tvecs)."""
+    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+    scene = SpriteScene(np.random.default_rng(seed), n_sprites=260,
+                        spread=2.4)
+    rvecs, tvecs = strafe_trajectory(n_frames, step=0.06, yaw_rate=0.001)
+    return ([scene.render(K, rvecs[i], tvecs[i], H, W, rgb=rgb)
+             for i in range(n_frames)], rvecs, tvecs)
+
+
+def state_trajectory(state):
+    """(keyframe poses [n, 6] sorted by frame number, the frame numbers),
+    as ``SfMEngine.get_trajectory`` and ``keyframe_numbers`` give them."""
+    kfs = state.kfs
+    valid = kfs.valid.cpu().numpy()
+    fn = kfs.frames.frame_no.cpu().numpy()[valid]
+    order = np.argsort(fn)
+    traj = np.concatenate([kfs.frames.rvec.cpu().numpy()[valid],
+                           kfs.frames.tvec.cpu().numpy()[valid]], 1)
+    return traj[order], fn[order]
+
+
+def links_consistent(state):
+    """No keyframe or ``prev`` link to an invalid landmark slot."""
+    ok = state.lms.valid.cpu().numpy()
+    pairs = [(state.prev.landmark, state.prev.kp_valid)]
+    kv = state.kfs.valid.cpu().numpy()
+    pairs += [(state.kfs.frames.landmark[s], state.kfs.frames.kp_valid[s])
+              for s in np.nonzero(kv)[0]]
+    for landmark, kp_valid in pairs:
+        lk = landmark.cpu().numpy()
+        lk = lk[(lk >= 0) & kp_valid.cpu().numpy()]
+        if not ok[lk].all():
+            return False
+    return True
+
+
+def run_pipeline(torch, dev, cfg, kernels, K=K, n_frames=N_FRAMES,
+                 merge_lag=PIPELINE_LAG, label="pipeline"):
+    """The offline phase's grey strafe, frame by frame through
+    ``AsyncMappingEngine(merge_lag)`` (the mapping pass on the worker
+    thread's own CUDA stream), then ``flush``; twice, and once through
+    ``SfMEngine.add_frame`` (inline mapping) for the rate beside it.
+    Checks the offline phase's gates, the merged map's links and view
+    counts, the kernels of ``kernels`` launched by the first run, every
+    launch of the BA kernels from the mapping stream (on the card), and
+    the second run equal to the first bit for bit.  Logs frames/s beside
+    the inline rate, the mapping passes' wall ms and the share of their
+    time hidden behind tracking: 1 - (the caller's ms waiting in joins) /
+    (the worker's ms in mapping passes)."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.engine import CameraParams, SfMEngine
+    from sfm_tpu_torch.parallel.pipeline import AsyncMappingEngine
+    from sfm_tpu_torch.synthetic import keyframe_ate
+
+    H, W = cfg.image_size
+    frames, rvecs, tvecs = strafe_frames(n_frames, H, W, K)
+    staged = [torch.as_tensor(f, device=dev) for f in frames]
+    Kt = torch.as_tensor(K, device=dev)
+    cam = CameraParams(K=Kt, d=torch.zeros(5, device=dev), Kopt=Kt)
+    skip = min(10, n_frames // 3)      # frames left out of the rates
+
+    t_phase = time.perf_counter()
+    inline = SfMEngine(K, (H, W), config=cfg, device=dev, seed=0)
+    sync(torch, dev)
+    secs = []
+    for img in staged:
+        t0 = time.perf_counter()
+        inline.add_frame(img)               # fetches the metrics: synced
+        secs.append(time.perf_counter() - t0)
+    inline_fps = (n_frames - skip) / sum(secs[skip:])
+
+    runs = []
+    for _ in range(2):
+        eng = AsyncMappingEngine(cfg, cam, merge_lag=merge_lag, device=dev,
+                                 seed=0)
+        sync(torch, dev)
+        native.reset_launch_counts()
+        secs, metrics = [], []
+        for img in staged:
+            t0 = time.perf_counter()
+            metrics.append(eng.step(img))
+            secs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        eng.flush()
+        sync(torch, dev)
+        runs.append(dict(
+            eng=eng, status=[int(m["status"]) for m in metrics],
+            fps=(n_frames - skip) / sum(secs[skip:]),
+            flush_ms=1e3 * (time.perf_counter() - t0),
+            launches=dict(native.LAUNCHES),
+            by_stream=dict(native.STREAM_LAUNCHES),
+            digest=state_digest(eng.state)))
+    first, eng = runs[0], runs[0]["eng"]
+    status = np.array(first["status"])
+    boot = int(np.argmax(status == 1)) if (status == 1).any() else None
+    if boot is None:
+        raise AssertionError(f"{label}: the scan never bootstrapped")
+    running = float((status[boot + 1:] == 1).mean())
+    traj, fns = state_trajectory(eng.state)
+    ate, extent = keyframe_ate(traj, fns, rvecs, tvecs)
+    lv = eng.state.lms.valid
+    n_views = int(eng.state.lms.n_views[lv].max()) if bool(lv.any()) else 0
+    t = eng.timer
+    map_s, wait_s = t.totals["mapping"], t.totals["join_wait"]
+    hidden = 1.0 - wait_s / map_s if map_s > 0 else float("nan")
+    map_stream = eng._stream.cuda_stream if eng._stream is not None else None
+    on_map = {k: first["by_stream"].get((k, map_stream), 0)
+              for k in first["launches"]}
+    log(f"[{label}] merge_lag {merge_lag}: bootstrap on frame {boot}; "
+        f"{running:.1%} of later frames RUNNING; {len(fns)} keyframes "
+        f"{fns.tolist()}; {int(lv.sum())} landmarks; ATE {ate:.5f} over "
+        f"extent {extent:.3f} ({100 * ate / extent:.3f}%); "
+        f"{t.counts['mapping']} mapping passes, "
+        f"{1e3 * map_s / max(t.counts['mapping'], 1):.3f} ms each on the "
+        f"worker; the caller waited {1e3 * wait_s:.3f} ms in "
+        f"joins and {1e3 * t.totals['merge']:.3f} ms in merges: "
+        f"{hidden:.1%} of the mapping time hidden behind tracking; "
+        f"launches {first['launches']}, from the mapping stream {on_map}")
+    log(f"[{label}] {first['fps']:.3f} frames/s over frames {skip}-"
+        f"{n_frames - 1} (flush {first['flush_ms']:.3f} ms after them; the "
+        f"rerun {runs[1]['fps']:.3f}), beside {inline_fps:.3f} frames/s "
+        f"inline (SfMEngine.add_frame on the same frames); the phase "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    checks = {
+        "post-bootstrap frames RUNNING >= 90%": running >= 0.9,
+        "keyframes >= 4": len(fns) >= 4,
+        "sim(3) keyframe ATE < 2% of extent": ate < 0.02 * extent,
+        "no keyframe or prev link to an invalid landmark":
+            links_consistent(eng.state),
+        "view counts survive the merges (max n_views >= 5)": n_views >= 5,
+        "mapping passes merged": t.counts["mapping"] == t.counts["merge"]
+        > 0,
+        "a rerun gives the same statuses, keyframes and landmarks bit for "
+        "bit": runs[1]["digest"] == first["digest"]
+        and runs[1]["status"] == first["status"],
+    }
+    for name in kernels:
+        checks[f"{name} launched by the phase"] = first["launches"][name] > 0
+    if map_stream is not None:
+        for name in MAPPING_KERNELS:
+            checks[f"{name}: every launch from the mapping stream"] = \
+                on_map[name] == first["launches"][name] > 0
+        checks["hamming_match launched from the mapping stream"] = \
+            on_map["hamming_match"] > 0
+    run_checks(label, checks)
+    return dict(
+        launches=first["launches"], launches_mapping_stream=on_map,
+        fps=first["fps"], rerun_fps=runs[1]["fps"], inline_fps=inline_fps,
+        mapping_passes=t.counts["mapping"],
+        mapping_ms=1e3 * map_s / max(t.counts["mapping"], 1),
+        join_wait_ms=1e3 * wait_s, merge_ms=1e3 * t.totals["merge"],
+        tracking_ms=1e3 * t.totals["tracking"] / n_frames,
+        hidden_share=hidden, ate_pct=100 * ate / extent, keyframes=len(fns),
+        running=running, digest=first["digest"],
+        keep=dict(staged=staged, cam=cam, cfg=cfg, merge_lag=merge_lag))
+
+
+def pipeline_device(torch, out, window=PIPELINE_PROFILED):
+    """After the profiled kernel checks: the pipeline phase's scan once
+    more, frames ``window[0]`` to ``window[1] - 1`` under torch.profiler
+    (a whole scan's trace takes minutes to read back): the card's busy
+    share, the kernels' device time summed over both streams over the
+    window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sfm_tpu_torch.parallel.pipeline import AsyncMappingEngine
+    keep = out.pop("keep")
+    eng = AsyncMappingEngine(keep["cfg"], keep["cam"],
+                             merge_lag=keep["merge_lag"], device="cuda",
+                             seed=0)
+    lo, hi = window
+    for img in keep["staged"][:lo]:
+        eng.step(img)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for img in keep["staged"][lo:hi]:
+            eng.step(img)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.flush()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages()) / 1e6
+    log(f"[pipeline] frames {lo}-{hi - 1} of the scan again under "
+        f"torch.profiler (a keyframe's mapping pass in them): {wall:.3f} "
+        f"s, the card busy {busy:.3f} s ({busy / wall:.1%}"
+        f", both streams' kernel time summed)")
+    return dict(frames=[lo, hi], profiled_s=wall, busy_s=busy,
+                busy_share=busy / wall)
+
+
+def _wire(metrics):
+    """Metrics as a scan client receives them (the server's JSON)."""
+    return json.loads(json.dumps(
+        {k: (v.tolist() if hasattr(v, "tolist") else v)
+         for k, v in metrics.items()}))
+
+
+def _feed(add_frame, add_frames, frames, single, chunk, to_wire):
+    """``single`` frames one by one, the rest in chunks of ``chunk``:
+    (metrics as JSON dicts, ms per single frame, seconds in chunks)."""
+    metrics, single_ms = [], []
+    for f in frames[:single]:
+        t0 = time.perf_counter()
+        metrics.append(to_wire(add_frame(f)))
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    for s in range(single, len(frames), chunk):
+        metrics += [to_wire(m) for m in add_frames(frames[s:s + chunk])]
+    return metrics, single_ms, time.perf_counter() - t0
+
+
+def run_serve(torch, dev, overrides, kernels, K=K, n_frames=SERVE_FRAMES,
+              n_single=SERVE_SINGLE, seeds=SERVE_SEEDS, label="serve"):
+    """``ScanServer`` on 127.0.0.1 (port 0) on ``dev``: two clients at once,
+    each on its own thread, each INIT with ``overrides`` (a configuration
+    without the image size), then ``n_frames`` uint8 RGB frames of a
+    strafe (scene seed ``seeds[i]``): ``n_single`` by FRAME, the rest by
+    FRAMES in chunks of keyframe_time_lag; then GET_CLOUD and CLOSE.  A
+    third connection sends FRAME before INIT.  Each served scan must equal
+    the same frames fed in the same way to an in-process ``SfMEngine``:
+    every frame's metrics, its keyframes, and the cloud bit for bit.  Also
+    checked: some cloud colour is not grey, the kernels of ``kernels``
+    launched by the served scans, and MSG_ERROR for the early FRAME.
+    Logs the per-frame round trip beside in-process add_frame, the FRAMES
+    rate and the two clients' aggregate frames/s."""
+    import threading
+
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.engine import SfMEngine
+    from sfm_tpu_torch.serving import ScanClient, ScanServer
+
+    cfg = SfMConfig(**overrides)
+    H, W = cfg.image_size
+    wire_cfg = {k: v for k, v in overrides.items()
+                if k not in ("image_height", "image_width")}
+    lag = cfg.keyframe_time_lag
+    scans = [np.stack(strafe_frames(n_frames, H, W, K, rgb=True,
+                                    seed=sd)[0]).astype(np.uint8)
+             for sd in seeds]
+    refs = []
+    for frames in scans:
+        eng = SfMEngine(K, (H, W), None, cfg, device=dev)
+        f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+        metrics, single_ms, chunk_s = _feed(
+            lambda f: eng.add_frame(f32(f)),
+            lambda fs: eng.add_frames(f32(fs)), frames, n_single, lag, _wire)
+        refs.append(dict(metrics=metrics, single_ms=single_ms,
+                         chunk_s=chunk_s, cloud=eng.get_reconstruction()))
+
+    served, errors = [None] * len(scans), []
+    sync(torch, dev)
+    native.reset_launch_counts()
+    with ScanServer(device=dev) as srv:
+        def client(i):
+            try:
+                cli = ScanClient("127.0.0.1", srv.port)
+                cli.init(H, W, float(K[0, 0]), float(K[1, 1]),
+                         float(K[0, 2]), float(K[1, 2]), config=wire_cfg)
+                metrics, single_ms, chunk_s = _feed(
+                    cli.add_frame, cli.add_frames, scans[i], n_single, lag,
+                    lambda m: m)
+                served[i] = dict(metrics=metrics, single_ms=single_ms,
+                                 chunk_s=chunk_s, cloud=cli.get_cloud())
+                cli.close()
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(scans))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        early = ScanClient("127.0.0.1", srv.port)
+        try:
+            early.add_frame(scans[0][0])
+            early_error = None
+        except RuntimeError as e:
+            early_error = str(e)
+        early._sock.close()
+    if errors:
+        raise errors[0]
+
+    def kf_frames(ms):
+        return [i for i, m in enumerate(ms) if m["keyframe_added"]]
+    checks = {}
+    rtt = np.concatenate([s["single_ms"] for s in served])
+    local = np.concatenate([r["single_ms"] for r in refs])
+    for i, (s, r) in enumerate(zip(served, refs)):
+        status = [m["status"] for m in s["metrics"]]
+        diff = [k for k, (a, b) in enumerate(zip(s["metrics"], r["metrics"]))
+                if a != b]
+        (xyz, rgb), (pts, cols) = s["cloud"], r["cloud"]
+        log(f"[{label}] client {i} (scene seed {seeds[i]}): statuses "
+            f"{''.join(map(str, status))}; keyframes at frames "
+            f"{kf_frames(s['metrics'])}; {len(xyz)} cloud points; frames "
+            f"whose metrics differ from in-process: {diff}")
+        checks.update({
+            f"client {i}: the scan bootstraps and ends RUNNING":
+                1 in status and status[-1] == 1,
+            f"client {i}: the same status on every frame as in-process":
+                status == [m["status"] for m in r["metrics"]],
+            f"client {i}: the same keyframe frames as in-process":
+                kf_frames(s["metrics"]) == kf_frames(r["metrics"]),
+            f"client {i}: every frame's metrics equal in-process": not diff,
+            f"client {i}: cloud xyz and rgb bit for bit as in-process":
+                np.array_equal(xyz, pts) and np.array_equal(rgb, cols)
+                and len(xyz) > 0,
+            f"client {i}: some cloud colour is not grey": bool(
+                ((rgb[:, 0] != rgb[:, 1]) | (rgb[:, 1] != rgb[:, 2])).any()),
+        })
+    checks["FRAME before INIT gives MSG_ERROR"] = \
+        early_error == "FRAME before INIT"
+    for name in kernels:
+        checks[f"{name} launched by the served scans"] = launches[name] > 0
+    n_chunked = n_frames - n_single
+    frames_rate = n_chunked * len(scans) / sum(s["chunk_s"] for s in served)
+    agg = n_frames * len(scans) / wall
+    log(f"[{label}] FRAME round trip median {np.median(rtt):.3f} ms, p95 "
+        f"{np.percentile(rtt, 95):.3f} ms (two clients at once) beside "
+        f"in-process add_frame median {np.median(local):.3f} ms, p95 "
+        f"{np.percentile(local, 95):.3f} ms (alone); FRAMES "
+        f"{frames_rate:.3f} frames/s per client; {agg:.3f} frames/s over "
+        f"both clients ({wall:.3f} s); launches {launches}")
+    run_checks(label, checks)
+    return dict(launches=launches, rtt_median_ms=float(np.median(rtt)),
+                rtt_p95_ms=float(np.percentile(rtt, 95)),
+                local_median_ms=float(np.median(local)),
+                local_p95_ms=float(np.percentile(local, 95)),
+                frames_fps_per_client=frames_rate, aggregate_fps=agg,
+                wall_s=wall)
+
+
 def ring_runs(torch, n):
     """The ring phase alone, ``n`` times on one card: each run's checks and
-    numbers as a JSON line (its K1 calls are not replayed).  Returns the
-    number of runs that failed a check."""
+    numbers as a JSON line (its K1 calls are not replayed), then whether
+    the runs' final maps agree bit for bit.  Returns the number of runs
+    that failed a check, plus one when the maps disagree."""
     from sfm_tpu_torch.config import RING, SfMConfig
-    failed = 0
+    failed, digests = 0, []
     for i in range(n):
         out = run_ring(torch, "cuda", SfMConfig(**RING), MAIN_PATH,
                        check=False)
         out.pop("global_ba_calls")
         bad = [k for k, ok in out["checks"].items() if not ok]
         failed += bool(bad)
+        digests.append(out["digest"])
         log(f"[ring] run {i + 1} of {n}: "
             + (f"FAILED {bad}" if bad else "every check passed"))
         print(json.dumps({"ring_run": i + 1, **out}), flush=True)
-    return failed
+    agree = len(set(digests)) == 1
+    log(f"[ring] the {n} rings' final maps agree bit for bit: {agree} "
+        f"({digests})")
+    print(json.dumps({"rings_agree": agree, "digests": digests}), flush=True)
+    return failed + (not agree)
 
 
 def fleet_runs(torch, n):
@@ -2584,12 +2982,21 @@ def main(argv):
                          MAIN_PATH, k1_calls=k1_calls)
     dense = run_slice(torch, dev, SfMConfig(**SLICE), "dense",
                       ("hamming_match", "patch_sampler"))
+    # the dense solver sums in a fixed order: a rerun repeats bit for bit
+    dense_again = run_slice(torch, dev, SfMConfig(**SLICE), "dense rerun",
+                            ("hamming_match", "patch_sampler"))
+    run_checks("dense", {
+        "a rerun gives the same statuses, keyframes and landmarks bit for "
+        "bit": dense_again["digest"] == dense["digest"]
+        and dense_again["statuses"] == dense["statuses"]})
     bench, bench_once = run_bench_ba(torch, dev)
     live = run_live(torch, dev, SfMConfig(**FLAGSHIP), MAIN_PATH)
     flow_cfg = SfMConfig(**FLAGSHIP, track_with_flow=True)
     flow = run_slice(torch, dev, flow_cfg, "flow", MAIN_PATH, n_frames=30)
     flow["lk_flow_ms"] = time_flow(torch, dev, flow_cfg)
     cli = run_cli(torch, dev)
+    pipeline = run_pipeline(torch, dev, SfMConfig(**FLAGSHIP), MAIN_PATH)
+    serve = run_serve(torch, dev, FLAGSHIP, MAIN_PATH)
     cg = run_slice(torch, dev, SfMConfig(**dict(FLAGSHIP, ba_solver="cg")),
                    "cg", ("hamming_match", "patch_sampler"), n_frames=40)
     log(f"[cg] mapping pass {cg['map_ms']:.3f} ms (large "
@@ -2640,6 +3047,7 @@ def main(argv):
     bench.update(bench_ba_device(torch, bench_once))
     long_dev = longscan_device(torch, long_cfg, longscan)
     fleet["device"] = fleet_device(torch, fleet)
+    pipeline["device"] = pipeline_device(torch, pipeline)
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
@@ -2652,6 +3060,9 @@ def main(argv):
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=flagship["launches"][name],
+            launches_by_phase={ph: out["launches"][name] for ph, out in (
+                ("flagship", flagship), ("pipeline", pipeline),
+                ("serve", serve))},
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"],
@@ -2738,6 +3149,8 @@ def main(argv):
         "live": live, "flow": {k: v for k, v in flow.items()
                                if k != "launches"}, "cli": cli,
         "cg": {k: v for k, v in cg.items() if k != "launches"},
+        "pipeline": pipeline, "serve": serve,
+        "dense_rerun_digest_equal": dense_again["digest"] == dense["digest"],
         "longscan": longscan, "ring": ring, "fleet": fleet,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))

@@ -4,16 +4,18 @@ elimination of the landmarks: the dense solver (``run_ba``,
 ``ba_solver="cg"``).
 
 ``run_ba`` assembles the normal-equation blocks U [C, 6, 6], V [L, 3, 3],
-W [C, L, 6, 3], g_cam [C, 6] and g_lm [L, 3] with ``index_add_`` over the
-COO observation list; the landmark blocks are eliminated, the reduced
+W [C, L, 6, 3], g_cam [C, 6] and g_lm [L, 3] by summing over the COO
+observation list; the landmark blocks are eliminated, the reduced
 [6C, 6C] camera system is solved densely, and the landmarks are
 back-substituted.  ``run_ba_cg`` keeps the coupling per observation,
 W_o [O, 6, 3], and solves the reduced system by block-Jacobi PCG (the
-large solver's ``_pcg``) through gathers and ``index_add_``.  In both, a
+large solver's ``_pcg``) through gathers and the same sums.  In both, a
 trial step is assembled at the proposed point, which yields its cost
-(accept / reject) and, when accepted, the next linearisation.  On the
-card ``index_add_`` sums with atomics, so the sums (and the iterates)
-vary in the last bits from run to run."""
+(accept / reject) and, when accepted, the next linearisation.  Every sum
+over observations runs in a fixed order (``utils.rowsum.RowSum``: the
+target rows sorted once per problem, no atomics), so a rerun on the card
+gives the same iterates bit for bit; on the CPU the sums equal
+``index_add_``'s."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..geometry.rotations import exp_so3
+from ..utils.rowsum import RowSum
 from .residuals import (Observations, apply_pose_update, huber_weights,
                         residuals_and_jacobians, robust_cost)
 
@@ -36,36 +39,43 @@ class BAStats(NamedTuple):
     dropped_obs: int = 0
 
 
+class _Sums(NamedTuple):
+    """The fixed-order sums of one BA problem's observations into cameras
+    and landmarks (built once, used in every LM iteration)."""
+    cam: RowSum
+    lm: RowSum
+
+    @classmethod
+    def of(cls, obs: Observations, n_cams: int, n_lms: int) -> "_Sums":
+        return cls(RowSum(obs.cam_idx, n_cams), RowSum(obs.lm_idx, n_lms))
+
+
 def _assemble_cg(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
-                 huber_delta: float):
+                 huber_delta: float, sums: _Sums):
     """The normal-equation blocks without the [C, L] coupling: U, V, the
     per-observation coupling W_o [O, 6, 3], g_cam, g_lm; and the robust
     cost."""
-    C, L = rvec.shape[0], xyz.shape[0]
     r, A, B = residuals_and_jacobians(K, exp_so3(rvec), tvec, xyz, obs)
     w = obs.w * huber_weights(r, huber_delta)
     A = A * (w * cam_free[obs.cam_idx])[:, None, None]
     B = B * (w * lm_free[obs.lm_idx])[:, None, None]
     rw = r * w[:, None]
     At, Bt = A.transpose(1, 2), B.transpose(1, 2)
-    U = xyz.new_zeros((C, 6, 6)).index_add_(0, obs.cam_idx, At @ A)
-    V = xyz.new_zeros((L, 3, 3)).index_add_(0, obs.lm_idx, Bt @ B)
-    g_cam = xyz.new_zeros((C, 6)).index_add_(
-        0, obs.cam_idx, -(At @ rw[:, :, None])[..., 0])
-    g_lm = xyz.new_zeros((L, 3)).index_add_(
-        0, obs.lm_idx, -(Bt @ rw[:, :, None])[..., 0])
+    U = sums.cam(At @ A)
+    V = sums.lm(Bt @ B)
+    g_cam = sums.cam(-(At @ rw[:, :, None])[..., 0])
+    g_lm = sums.lm(-(Bt @ rw[:, :, None])[..., 0])
     return (U, V, At @ B, g_cam, g_lm), robust_cost(r, obs.w, huber_delta)
 
 
 def _assemble(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
-              huber_delta: float):
+              huber_delta: float, sums: _Sums, pair_sum: RowSum):
     """``_assemble_cg``'s blocks with the coupling summed into
-    W [C, L, 6, 3]."""
+    W [C, L, 6, 3] (``pair_sum`` over the rows cam * L + lm)."""
     (U, V, W_o, g_cam, g_lm), cost = _assemble_cg(
-        K, rvec, tvec, xyz, obs, cam_free, lm_free, huber_delta)
+        K, rvec, tvec, xyz, obs, cam_free, lm_free, huber_delta, sums)
     C, L = rvec.shape[0], xyz.shape[0]
-    W = xyz.new_zeros((C * L, 6, 3)).index_add_(
-        0, obs.cam_idx * L + obs.lm_idx, W_o).reshape(C, L, 6, 3)
+    W = pair_sum(W_o).reshape(C, L, 6, 3)
     return (U, V, W, g_cam, g_lm), cost
 
 
@@ -143,9 +153,12 @@ def run_ba(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
     host read per iteration)."""
     cam_free_f = cam_free.to(torch.float32)
     lm_free_f = lm_free.to(torch.float32)
+    C, L = rvec.shape[0], xyz.shape[0]
+    sums = _Sums.of(obs, C, L)
+    pair_sum = RowSum(obs.cam_idx * L + obs.lm_idx, C * L)
     return _lm_loop(
         lambda rv, tv, X: _assemble(K, rv, tv, X, obs, cam_free_f,
-                                    lm_free_f, huber_delta),
+                                    lm_free_f, huber_delta, sums, pair_sum),
         lambda blocks, lam: _solve_step(*blocks, lam),
         rvec, tvec, xyz, cam_free_f, lm_free_f, iterations=iterations,
         lam0=lam0, lam_up=lam_up, lam_down=lam_down, tol=tol)
@@ -166,6 +179,7 @@ def run_ba_cg(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
     cam_free_f = cam_free.to(torch.float32)
     lm_free_f = lm_free.to(torch.float32)
     eye6 = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
+    sums = _Sums.of(obs, C, L)
 
     def step(blocks, lam):
         U, V, W_o, g_cam, g_lm = blocks
@@ -174,13 +188,11 @@ def run_ba_cg(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
 
         def wt_x(x):
             # t[l] = sum over the observations of l of W_o^T x[cam_o]
-            q = (x[cam_idx][:, None, :] @ W_o)[:, 0]
-            return xyz.new_zeros((L, 3)).index_add_(0, lm_idx, q)
+            return sums.lm((x[cam_idx][:, None, :] @ W_o)[:, 0])
 
         def w_z(z):
             # y[c] = sum over the observations of c of W_o z[lm_o]
-            p = (W_o @ z[lm_idx][:, :, None])[..., 0]
-            return xyz.new_zeros((C, 6)).index_add_(0, cam_idx, p)
+            return sums.cam((W_o @ z[lm_idx][:, :, None])[..., 0])
 
         def vinv(v):
             return (Vinv @ v[:, :, None])[..., 0]
@@ -195,7 +207,7 @@ def run_ba_cg(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
 
     return _lm_loop(
         lambda rv, tv, X: _assemble_cg(K, rv, tv, X, obs, cam_free_f,
-                                       lm_free_f, huber_delta),
+                                       lm_free_f, huber_delta, sums),
         step, rvec, tvec, xyz, cam_free_f, lm_free_f, iterations=iterations,
         lam0=lam0, lam_up=lam_up, lam_down=lam_down, tol=tol)
 

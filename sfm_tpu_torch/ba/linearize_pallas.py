@@ -96,15 +96,16 @@ def ba_linearize_kernel(K, R, tvec, xyz, lm_free_f, cam_free_f, lm_cam,
     U = torch.empty((C, 6, 6), **f32)
     g_cam = torch.empty((C, 6), **f32)
     cost = torch.empty((C,), **f32)     # per camera
+    stream = native.stream_handle(dev)
     rc = native.library().sfm_ba_linearize(
         K.data_ptr(), R.data_ptr(), tvec.data_ptr(), cam_free_f.data_ptr(),
         xyz.data_ptr(), lm_free_f.data_ptr(), lm_cam.data_ptr(),
         lm_uv.data_ptr(), lm_w.data_ptr(), slots.offsets.data_ptr(),
         slots.slots.data_ptr(), L, kmax, C, float(huber_delta), W.data_ptr(),
         V.data_ptr(), g_lm.data_ptr(), U.data_ptr(), g_cam.data_ptr(),
-        cost.data_ptr(), native.stream_handle(dev))
+        cost.data_ptr(), stream)
     native.check(rc, "ba_linearize")
-    native.LAUNCHES["ba_linearize"] += 1
+    native.count_launch("ba_linearize", stream)
     return W, V, g_lm, U, g_cam, cost.sum()
 
 

@@ -109,12 +109,13 @@ def schur_kernel(mode: str, lm_cam, W, Vinv=None, g=None, x=None, z=None,
     if mode == "scatter":
         Vinv = g = x = None
     offsets, order = (None, None) if mode == "gather" else slots
+    stream = native.stream_handle(dev)
     rc = native.library().sfm_schur_apply(
         code, ptr(lm_cam), ptr(W), ptr(Vinv), ptr(g), ptr(x), ptr(z),
         ptr(offsets), ptr(order), L, kmax, C, ptr(z_out), ptr(q), ptr(y),
-        native.stream_handle(dev))
+        stream)
     native.check(rc, f"schur_{mode}")
-    native.LAUNCHES[counter] += 1
+    native.count_launch(counter, stream)
     return {"full": (z_out, y), "gather": z_out, "scatter": y}[mode]
 
 

@@ -213,15 +213,16 @@ def _launch(args, raw: bool):
                           torch.empty((B, Ns), dtype=torch.bool, **e))
     flat = [x for t, bs in ops for x in (t.data_ptr(), bs)]
     lib = native.library()
+    stream = native.stream_handle(dev)
     rc = lib.sfm_hamming_match(
         *flat, B, Ns, Nt, min_r2, max_r2, max_d, ratio,
         int(route == "cells"), _route_mode(route, B, Ns, max_r2), reach,
         inv_cell, idx.data_ptr(),
         best.data_ptr(), second.data_ptr(), keys.data_ptr(),
         *([None] * 3 if raw else [t.data_ptr() for t in res]),
-        native.stream_handle(dev))
+        stream)
     native.check(rc, "hamming_match")
-    native.LAUNCHES["hamming_match"] += 1
+    native.count_launch("hamming_match", stream)
     return (idx, best, second, keys) if raw else res
 
 

@@ -72,11 +72,12 @@ def extract_patches_kernel(canvas_s: torch.Tensor, cx: torch.Tensor,
     if B * N == 0:
         return out
     lib = native.library()
+    stream = native.stream_handle(dev)
     rc = lib.sfm_extract_patches(canvas_s.data_ptr(), B, Hc, Wc,
                                  cx.data_ptr(), cy.data_ptr(), N,
-                                 out.data_ptr(), native.stream_handle(dev))
+                                 out.data_ptr(), stream)
     native.check(rc, "extract_patches")
-    native.LAUNCHES["patch_sampler"] += 1
+    native.count_launch("patch_sampler", stream)
     return out
 
 

@@ -9,7 +9,8 @@ Makefile at first use into ``build/sfm_tpu_torch/<hash>/libsfm_native.so``
 at the repository root (git-ignored), keyed on a hash of the sources (their
 paths in this package and their bytes) and the flags, and loaded with
 ``ctypes``.  Nothing runs at import time, and a failed
-build raises: callers choose the numpy versions explicitly instead."""
+build raises: callers choose the numpy versions explicitly instead.  The
+first build runs under a lock: a caller on another thread waits for it."""
 
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]
@@ -26,6 +28,7 @@ _SOURCES = tuple(_PACKAGE / "native_src" / n
 _BUILD_ROOT = _PACKAGE.parent / "build" / "sfm_tpu_torch"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 _lib = None
+_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _FP = ctypes.POINTER(ctypes.c_float)
@@ -65,7 +68,8 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"libsfm_native.{os.getpid()}.so")
+    tmp = out.with_name(
+        f"libsfm_native.{os.getpid()}.{threading.get_ident()}.so")
     cmd = [_compiler(), *CXX_FLAGS, "-o", str(tmp),
            *(str(s) for s in _SOURCES), "-lpthread"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -77,13 +81,16 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded runtime (built on first call)."""
+    """The loaded runtime (built on first call; a caller on another thread
+    meanwhile waits for that build)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
+        with _lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, (argtypes, restype) in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                _lib = lib
     return _lib

@@ -13,7 +13,9 @@ Representative descriptors use per-bit saturating vote counters (int8,
 
 Scatters that the JAX package writes with an out-of-range index and
 ``mode="drop"`` write here into a padded copy whose last row takes the
-dropped entries and is sliced off (``_set_drop``)."""
+dropped entries and is sliced off (``_set_drop``).  The float colour sums
+run in a fixed order (``utils.rowsum.add_rows``: no atomics on the card);
+the integer counters use ``index_add``, which is exact."""
 
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Tuple
 import torch
 
 from .features.bits import pack_bits, unpack_bits
+from .utils.rowsum import add_rows
 
 
 def _fields(obj):
@@ -227,8 +230,9 @@ def add_descriptors(lms: LandmarkStore, ids, desc, colors=None
             0, flat, okf.to(torch.int32)).reshape(lms.n_desc.shape))
     if colors is not None:
         cs = out.color_sum
-        out = out.replace(color_sum=cs.reshape(-1, 3).index_add(
-            0, flat, colors.reshape(-1, 3) * okf[:, None]).reshape(cs.shape))
+        out = out.replace(color_sum=add_rows(
+            cs.reshape(-1, 3), flat,
+            colors.reshape(-1, 3) * okf[:, None]).reshape(cs.shape))
     return out
 
 

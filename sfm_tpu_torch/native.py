@@ -9,9 +9,12 @@ happens at first use, from the sources in this package only, into
 on a hash of ``csrc/`` and the flags.  Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
 
-Each wrapper keeps a launch count in ``LAUNCHES``: it adds one where it
+Each wrapper counts its launches with ``count_launch``: it adds one where it
 launches its kernel, and nowhere else, so a run can show that the main
-path went through the kernels."""
+path went through the kernels.  ``LAUNCHES`` holds the counts by kernel and
+``STREAM_LAUNCHES`` by kernel and CUDA stream.  Kernels launch from more
+than one thread (the pipeline's mapping worker, the server's connections),
+so the counts and the first build are taken under locks."""
 
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,8 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"hamming_match": 0, "patch_sampler": 0, "ba_linearize": 0,
             "schur_apply": 0, "schur_gather": 0, "schur_scatter": 0}
+# (kernel, stream handle) -> launches
+STREAM_LAUNCHES = {}
 BUILD_INFO = {}
 _lib = None
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,8 +60,19 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        STREAM_LAUNCHES.clear()
+
+
+def count_launch(name: str, stream: ctypes.c_void_p) -> None:
+    """One launch of kernel ``name`` on ``stream`` (the handle the wrapper
+    passed to it)."""
+    key = (name, stream.value or 0)
+    with _count_lock:
+        LAUNCHES[name] += 1
+        STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -86,7 +105,8 @@ def build() -> Path:
     t0 = time.perf_counter()
     procs = []
     for s in sources:
-        tmp = out_dir / f"lib{s.stem}.{os.getpid()}.so"
+        tmp = out_dir / (f"lib{s.stem}.{os.getpid()}."
+                         f"{threading.get_ident()}.so")
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(s)]
         procs.append((s.stem, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -121,10 +141,13 @@ class _Library:
 
 
 def library() -> _Library:
-    """The loaded kernel libraries (built on first call)."""
+    """The loaded kernel libraries (built on first call; a caller on
+    another thread meanwhile waits for that build)."""
     global _lib
     if _lib is None:
-        _lib = _Library(build())
+        with _build_lock:
+            if _lib is None:
+                _lib = _Library(build())
     return _lib
 
 

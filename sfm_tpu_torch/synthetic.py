@@ -1,7 +1,7 @@
 """Synthetic textured-sprite scan generator (numpy only).
 
-A copy of ``sfm_tpu.synthetic``'s ``SpriteScene``, ``strafe_trajectory``
-and ``umeyama_ate``, of ``benchmarks/bench_longscan.py``'s
+A copy of ``sfm_tpu.synthetic``'s ``SpriteScene``, ``degrade``,
+``strafe_trajectory`` and ``umeyama_ate``, of ``benchmarks/bench_longscan.py``'s
 ``serpentine_trajectory`` and scene (``longscan_scene``), and of
 ``benchmarks/bench_loop_closure.py``'s outward-looking ring orbit
 (``ring_loop_trajectory``, ``ring_scene``, ``centres_of`` and its
@@ -71,6 +71,35 @@ class SpriteScene:
             else:
                 img[cv0:cv1, cu0:cu1] = patch
         return img
+
+
+def degrade(img, rng, noise_std=0.0, blur_len=0, occlusion=0.0):
+    """Degradation model for robustness tests: horizontal motion blur (a
+    box kernel of ``blur_len`` px), additive Gaussian photometric noise,
+    and one random dark rectangle covering ``occlusion`` of the image
+    area.  Draws from ``rng`` exactly as the JAX package's copy does."""
+    out = np.asarray(img, np.float32).copy()
+    if blur_len > 1:
+        k = np.ones(blur_len, np.float32) / blur_len
+        if out.ndim == 2:
+            out = np.stack([np.convolve(row, k, mode="same") for row in out])
+        else:
+            for c in range(out.shape[2]):
+                out[:, :, c] = np.stack(
+                    [np.convolve(row, k, mode="same")
+                     for row in out[:, :, c]])
+    if noise_std > 0:
+        out = out + rng.normal(0.0, noise_std, out.shape)
+    if occlusion > 0:
+        h, w = out.shape[:2]
+        area = occlusion * h * w
+        rh = int(np.sqrt(area * rng.uniform(0.5, 2.0)))
+        rh = min(max(rh, 1), h)
+        rw = min(int(area / rh), w)
+        y0 = int(rng.integers(0, max(h - rh, 1)))
+        x0 = int(rng.integers(0, max(w - rw, 1)))
+        out[y0:y0 + rh, x0:x0 + rw] = 20.0
+    return np.clip(out, 0.0, 255.0)
 
 
 def strafe_trajectory(n_frames, step=0.05, yaw_rate=0.004):

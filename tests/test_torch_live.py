@@ -5,8 +5,10 @@ scan with K1's calls recorded by call site (the inputs of the replay),
 "live"
 (RGB frames through per-frame add_frame with guidance, blank frames until
 LOST, relocalization, tracking again; every check of the phase), "flow"
-timing, and "cli" (scan with metrics, checkpoint and video, a resumed
-scan, the PLY files read back).  On the CPU the matcher runs its plain
+timing, "cli" (scan with metrics, checkpoint and video, a resumed
+scan, the PLY files read back), "pipeline" (the pipelined engine twice
+and inline) and "serve" (two clients at once against in-process
+engines).  On the CPU the matcher runs its plain
 version, so a wrapper counts its calls where the kernel counts launches."""
 
 import importlib.util
@@ -102,3 +104,18 @@ def test_offline_phase_records_k1_calls(smoke, counted_k1):
     with smoke.k1_route_forced(mp, "cells"):
         assert mp.k1_route(*shape) == "cells"
     assert mp.k1_route(*shape) == "dense_int"
+
+
+def test_pipeline_phase(smoke, counted_k1):
+    out = smoke.run_pipeline(torch, "cpu", SfMConfig(**TEST_CFG_KW),
+                             ("hamming_match",), K=TEST_K, n_frames=30)
+    assert out["mapping_passes"] >= 2 and out["keyframes"] >= 4
+    assert out["launches"]["hamming_match"] > 0
+    assert out["inline_fps"] > 0 and 0 <= out["hidden_share"] <= 1
+
+
+def test_serve_phase(smoke, counted_k1):
+    out = smoke.run_serve(torch, "cpu", TEST_CFG_KW, ("hamming_match",),
+                          K=TEST_K, n_frames=14, n_single=6)
+    assert out["launches"]["hamming_match"] > 0
+    assert out["aggregate_fps"] > 0 and out["rtt_median_ms"] > 0
