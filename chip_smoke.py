@@ -4,6 +4,7 @@
     python3 chip_smoke.py --calls DIR   # K1 / K5 call times of DIR's package
     python3 chip_smoke.py --ring N      # the ring phase alone, N runs
     python3 chip_smoke.py --fleet N     # the fleet phase alone, N runs
+    python3 chip_smoke.py --dist        # the dist phase alone
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
@@ -85,6 +86,27 @@
    beside the FLAGSHIP single-scan rate of this run, the time split and
    max_memory_allocated; K1's calls in the timed tracking steps are
    recorded;
+12a. "dist": distributed BA and the sharded fleet over torch.distributed.
+   The pod (benchmarks/bench_dist_model.py's 5120 cameras, 2**20
+   landmarks, kmax 8, by benchmarks/bench_dist_scaling.py's generator;
+   8.4 M observations) through ``build_dist_large_ba``, 10 LM x 25 CG,
+   its tables from ``partition_tables(device=)``: as a world of one
+   under NCCL (torchrun's variables, ``initialize_hosts`` and
+   ``make_scan_map_mesh`` on their defaults), then as 4 gloo ranks
+   sharing the card (NCCL refuses two ranks on one card), mesh (1, 4);
+   checks: the cost falls, every rank's poses equal bit for bit, 4 ranks
+   against 1 within 1e-3 in rvec and 1% in the final cost, K2 / K3 /
+   K3-gather launched on every rank exactly as the loop runs them;
+   prints the host ms per LM iteration and per CG all-reduce.  The same
+   4 ranks run ``build_dist_ba`` on a FLAGSHIP-width dense problem (32
+   keyframes, 2048 landmarks), held to ``run_ba`` at
+   tests/test_parallel.py's limits, and ``dryrun_multichip(4)``.  Then 2
+   gloo ranks step the fleet phase's first 8 scans, 10 frames, through
+   ``build_sharded_step`` (each rank's block left by
+   ``shard_batched_state``'s default on the card it was made on): each
+   rank's 4 scans equal a fleet of those 4 in one process bit for bit,
+   with 2 K1 and 1 K5 launches per batched tracking step; rank 0's K1
+   calls at the tracking step are recorded;
 13. holds each kernel against its plain PyTorch version at the main path's
    shapes and times both, in device time (torch.profiler) and with CUDA
    events, beside the kernel's bound (bytes over the memory rate or
@@ -106,7 +128,11 @@
    full, gather and scatter modes) within 1e-4 of the largest entry and
    bit-identical on a rerun, at the flagship's mapping-BA shape (dead rows
    included), at benchmarks/bench_ba.py's 1000-camera problem and, for
-   equality only, at its layout with 4096 cameras; then run_large_ba once
+   equality only, at its layout with 4096 cameras, and K2 / K3 /
+   K3-gather at the pod's two shapes (5120 cameras, kmax 8: the world of
+   one's 2**20 landmarks, a gloo rank's shard of 262144); K1 on the
+   sharded fleet's rank 0's own tracking calls and K5 on its block's
+   canvases (4 scans x 512 keypoints); then run_large_ba once
    more under the profiler; then global BA on the long scan's state (host
    and device ms per LM iteration), and K2, K3 full and K3-gather on the
    long scan's own last global-BA and mapping-pass problems, where the
@@ -121,10 +147,13 @@
    because a profiler session leaves the host slower for the host-bound
    phases after it (and a long one disturbs the sessions after it);
 14. prints a JSON line with the phases' numbers, a JSON line with the
-   kernels' numbers (the six kernels, then K2 / K3 / K3-gather at the long
-   scan's two shapes, then K1 at the long scan's call sites, at the
+   kernels' numbers (the six kernels, with their launches by phase, the
+   dist phase's over every rank; then K2 / K3 / K3-gather at the long
+   scan's two shapes and at the pod's two shapes, then K1 at the long
+   scan's call sites, at the
    ring's loop probe and at the fleet's two sites, then K5 at the fleet's
-   shape), then the card line, then {"ok": true, "device":
+   shape, then K1 and K5 at the sharded fleet's per-rank batch), then the
+   card line, then {"ok": true, "device":
    {...}} as the last line.
 With ``--calls DIR`` it only times K1's whole call at its five shapes and
 K5's call (device time and device ops per call) for the sfm_tpu_torch
@@ -135,7 +164,8 @@ as a JSON line, then the card line (exit 1 when a run failed a check):
 the spread of a scan over runs, and whether the runs' final maps agree
 bit for bit (exit 1 when they do not).  ``--fleet N``
 runs one FLAGSHIP single scan (for the rate beside the fleet's) and the
-fleet phase N times, likewise.
+fleet phase N times, likewise.  ``--dist`` runs the dist phase and its
+kernel rows (the pod's two shapes, the sharded fleet's batch) alone.
 Any failed check raises, and the script exits non-zero."""
 
 import contextlib
@@ -2246,17 +2276,16 @@ def run_fleet(torch, dev, cfg, K=K, batch=FLEET_BATCH, n_frames=FLEET_FRAMES,
     return out
 
 
-def fleet_k5_row(torch, out):
-    """K5 at the fleet's shape: the batched canvases and keypoints of the
-    last chunk's last frame (64 x [480, 1200], 64 x 512 keypoints), held
-    bit for bit against the plain version and against one kernel call per
-    canvas, and timed beside F.grid_sample on the same samples."""
+def fleet_k5_row(torch, cfg, images, what="fleet"):
+    """K5 at a fleet's batched shape: the canvases and keypoints of one
+    fleet frame ``images`` [B, H, W] under ``cfg`` (the fleet phase's last
+    frame: 64 x [480, 1200], 64 x 512 keypoints), held bit for bit
+    against the plain version and against one kernel call per canvas,
+    and timed beside F.grid_sample on the same samples."""
     from sfm_tpu_torch.features import patches_pallas as pp
     from sfm_tpu_torch.features.descriptor import patch_inputs
     from sfm_tpu_torch.features.detect import detect
-    drv = out["keep"]["driver"]
-    cfg = drv.cfg
-    imgs = out["keep"]["chunk"][-1].to(torch.float32)
+    imgs = images.to(torch.float32)
     kps, canvas = detect(imgs, max_keypoints=cfg.max_keypoints,
                          levels=cfg.pyramid_levels,
                          threshold=cfg.fast_threshold,
@@ -2268,12 +2297,12 @@ def fleet_k5_row(torch, out):
     torch.cuda.synchronize()
     err = float((a - b).abs().max())
     if not torch.equal(a, b):
-        raise AssertionError(f"K5 fleet: differs from the plain version "
+        raise AssertionError(f"K5 {what}: differs from the plain version "
                              f"(max abs err {err})")
     for i in range(canvas_s.shape[0]):
         if not torch.equal(a[i], pp.extract_patches_kernel(
                 canvas_s[i], cx[i], cy[i])):
-            raise AssertionError(f"K5 fleet: canvas {i} differs from its "
+            raise AssertionError(f"K5 {what}: canvas {i} differs from its "
                                  f"own call")
     t = timed(torch, lambda: pp.extract_patches_plain(canvas_s, cx, cy),
               lambda: pp.extract_patches_kernel(canvas_s, cx, cy),
@@ -2296,7 +2325,7 @@ def fleet_k5_row(torch, out):
     lib_err = float((library().reshape(a.shape) - b).abs().max())
     lib_ms = device_ms(torch, library)
     bd = k5_bound(torch, canvas_s, cx, cy, a)
-    row = dict(shape=f"fleet {B} x {cx.shape[-1]} kp, canvases "
+    row = dict(shape=f"{what} {B} x {cx.shape[-1]} kp, canvases "
                      f"{tuple(canvas_s.shape)}",
                max_abs_err=err, library_ms=lib_ms,
                library_max_abs_err=lib_err, **t, **bd)
@@ -2894,6 +2923,617 @@ def run_serve(torch, dev, overrides, kernels, K=K, n_frames=SERVE_FRAMES,
                 wall_s=wall)
 
 
+# the "dist" phase's sizes, handed to its ranks: benchmarks/
+# bench_dist_model.py's pod (5120 cameras, 2**20 landmarks, kmax 8) for the
+# distributed implicit-Schur solver, 10 LM x 25 CG, as one rank under NCCL
+# and as 4 gloo ranks sharing the card; the dense solver at FLAGSHIP's
+# width (32 keyframes, its ba_landmark_capacity of 2048 landmarks, each
+# seen by 8 keyframes), 12 LM iterations; the sharded fleet (the fleet
+# phase's scans, 8 of them over 2 ranks, 10 frames, FLAGSHIP)
+DIST_SIZE = dict(C=5120, L=1 << 20, kmax=8, ranks=4, lm=10, cg=25,
+                 dense_c=32, dense_l=2048, dense_obs=8, dense_lm=12,
+                 fleet_scans=8, fleet_ranks=2, fleet_frames=10, cfg=None, K=K)
+# the seconds a spawned world of ranks may take
+DIST_TIMEOUT = 400.0
+DIST_KERNELS = ("ba_linearize", "schur_apply", "schur_gather")
+
+
+def pod_problem(torch, dev, C, L, kmax, ranks, seed=0):
+    """benchmarks/bench_dist_scaling.py's problem (landmark l seen by the
+    kmax consecutive cameras from its home camera l (C - kmax) // L; uv
+    projected at f 525; the cameras 0.002 rad off, camera 0 frozen; X
+    moved by N(0, 0.05)) with C cameras and L landmarks (DIST_SIZE:
+    benchmarks/bench_dist_model.py's pod, 8.4 M observations), on
+    ``dev``; with nmax for 1 and ``ranks`` shards."""
+    from sfm_tpu_torch.ba.residuals import Observations
+    rng = np.random.default_rng(seed)
+    home = (np.arange(L) * (C - kmax) // L).astype(np.int32)
+    cam_idx = (home[:, None] + np.arange(kmax)[None, :]).reshape(-1)
+    lm_idx = np.repeat(np.arange(L, dtype=np.int32), kmax)
+    X = np.stack([rng.uniform(-40, 40, L), rng.uniform(-8, 8, L),
+                  rng.uniform(20, 50, L)], 1).astype(np.float32)
+    cam_t = np.stack([np.linspace(-35, 35, C), np.zeros(C),
+                      np.zeros(C)], 1).astype(np.float32)
+    p = X[lm_idx] + cam_t[cam_idx]
+    uv = ((p[:, :2] / p[:, 2:]) * 525.0
+          + np.array([320.0, 240.0])).astype(np.float32)
+    rv0 = np.zeros((C, 3), np.float32)
+    rv0[1:] += 0.002
+    X0 = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        a, dtype=dt, device=dev)
+    cam_free = torch.ones(C, dtype=torch.bool, device=dev)
+    cam_free[0] = False
+    # nmax: the most observations of one camera in one shard, per count of
+    # shards (a shard's landmarks have contiguous home cameras)
+    nmax = {n: int(np.bincount((lm_idx // (L // n)).astype(np.int64) * C
+                               + cam_idx).max()) for n in (1, ranks)}
+    return dict(K=t(K), rv=t(rv0), tv=t(cam_t), X=t(X0),
+                obs=Observations(t(cam_idx, torch.int64),
+                                 t(lm_idx, torch.int64), t(uv),
+                                 torch.ones(len(cam_idx), device=dev)),
+                cam_free=cam_free,
+                lm_free=torch.ones(L, dtype=torch.bool, device=dev),
+                nmax=nmax, C=C, L=L, kmax=kmax)
+
+
+def all_reduce_ms(torch, mesh, C, dev, reps=50):
+    """Host ms per all-reduce of a [C, 6] f32 vector over "map" (what a CG
+    iteration of the distributed solver sends), on the host clock around
+    synchronised calls."""
+    from sfm_tpu_torch.parallel.dist_ba import all_sum
+    group = mesh.get_group("map")
+    v = torch.zeros((C, 6), device=dev)
+    for _ in range(5):
+        all_sum(group, v)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_sum(group, v)
+    sync(torch, dev)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def pod_solve(torch, mesh, pr, dev, lm, cg):
+    """``build_dist_large_ba`` on the pod problem over "map" of ``mesh``
+    (``lm`` LM x ``cg`` CG iterations): the tables by ``partition_tables``
+    on the device with the problem's nmax; one untimed run, then one run
+    timed on the host clock with this rank's launches of K2, K3 and
+    K3-gather counted from 0; then the all-reduce of a CG iteration."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.parallel import build_dist_large_ba, partition_tables
+    from sfm_tpu_torch.parallel.dist_ba import axis_shard
+    _, pos, n = axis_shard(mesh, "map")
+    C, L = pr["C"], pr["L"]
+    t0 = time.perf_counter()
+    tabs, shard = partition_tables(pr["obs"], C, L, n, pr["nmax"][n],
+                                   pr["kmax"], device=dev)
+    sync(torch, dev)
+    part_s = time.perf_counter() - t0
+    fn = build_dist_large_ba(mesh, "map", C, shard, iterations=lm,
+                             cg_iterations=cg)
+    args = (pr["K"], pr["rv"], pr["tv"], pr["X"], tabs, pr["cam_free"],
+            pr["lm_free"])
+    fn(*args)
+    sync(torch, dev)
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    rv, tv, X_l, st = fn(*args)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = {k: native.LAUNCHES[k] for k in DIST_KERNELS}
+    return dict(ranks=n, map_rank=pos, shard_size=shard,
+                nmax=pr["nmax"][n], table_shape=list(tabs.cam_lm.shape),
+                partition_s=part_s, ms_per_lm_iter=1e3 * secs / lm,
+                all_reduce_ms=all_reduce_ms(torch, mesh, C, dev),
+                initial_cost=float(st.initial_cost),
+                final_cost=float(st.final_cost), accepted=int(st.accepted),
+                launches=launches, landmarks_finite=bool(
+                    torch.isfinite(X_l).all()),
+                rv=rv.cpu().numpy(), tv=tv.cpu().numpy())
+
+
+def dense_problem(C, L, obs_per_lm, seed=1, noise_px=0.0):
+    """A dense BA problem at FLAGSHIP's width, in numpy: C keyframes along
+    a strafe, landmark l seen by obs_per_lm consecutive keyframes from a
+    random first one, pixels with ``noise_px`` of noise (none, as in
+    tests/test_parallel.py's scenes: the minimum is the truth, where two
+    f32 LM runs meet; with noise, steps that change the cost by its
+    rounding are taken or refused by chance and the runs wander apart
+    along flat directions); poses moved by N(0, 0.005) rad and
+    N(0, 0.01), landmarks by N(0, 0.05); keyframes 0 and 1 frozen (pose
+    and scale gauge)."""
+    from sfm_tpu_torch.np_geometry import rodrigues_np
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L),
+                  rng.uniform(4, 10, L)], 1)
+    rv = rng.uniform(-0.02, 0.02, (C, 3))
+    tv = np.stack([-0.06 * np.arange(C), rng.uniform(-0.02, 0.02, C),
+                   rng.uniform(-0.02, 0.02, C)], 1)
+    first = rng.integers(0, C - obs_per_lm + 1, L)
+    lm_idx = np.repeat(np.arange(L), obs_per_lm)
+    cam_idx = (first[:, None] + np.arange(obs_per_lm)[None, :]).reshape(-1)
+    R = np.stack([rodrigues_np(r) for r in rv])
+    p = np.einsum("oab,ob->oa", R[cam_idx], X[lm_idx]) + tv[cam_idx]
+    uv = p[:, :2] / p[:, 2:] * 525.0 + np.array([320.0, 240.0])
+    uv += rng.normal(0, noise_px, uv.shape)
+    frozen = np.arange(C) < 2
+    f = np.float32
+    return dict(K=K, rv=np.where(frozen[:, None], rv, rv + rng.normal(
+        0, 0.005, rv.shape)).astype(f),
+        tv=np.where(frozen[:, None], tv, tv + rng.normal(
+            0, 0.01, tv.shape)).astype(f),
+        X=(X + rng.normal(0, 0.05, X.shape)).astype(f),
+        obs=(cam_idx, lm_idx, uv.astype(f), np.ones(len(uv), f)),
+        cam_free=~frozen, lm_free=np.ones(L, bool))
+
+
+def dense_solve(torch, mesh, dev, size):
+    """``build_dist_ba`` on ``dense_problem`` over "map" (size["dense_lm"]
+    iterations): this rank's poses, landmark shard and costs."""
+    from sfm_tpu_torch.ba.residuals import Observations
+    from sfm_tpu_torch.parallel import build_dist_ba, partition_observations
+    from sfm_tpu_torch.parallel.dist_ba import axis_shard
+    _, pos, n = axis_shard(mesh, "map")
+    C, L, n_obs = size["dense_c"], size["dense_l"], size["dense_obs"]
+    p = dense_problem(C, L, n_obs)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    obs_sh, shard = partition_observations(
+        Observations(*map(torch.as_tensor, p["obs"])), L, n,
+        L // n * n_obs)
+    fn = build_dist_ba(mesh, "map", C, shard, iterations=size["dense_lm"])
+    t0 = time.perf_counter()
+    rv, tv, X_l, st = fn(t(p["K"]), t(p["rv"]), t(p["tv"]), t(p["X"]),
+                         Observations(*map(t, obs_sh)), t(p["cam_free"]),
+                         t(p["lm_free"]))
+    sync(torch, dev)
+    return dict(map_rank=pos, ms_per_lm_iter=1e3 * (time.perf_counter() - t0)
+                / size["dense_lm"], initial_cost=float(st.initial_cost),
+                final_cost=float(st.final_cost), accepted=int(st.accepted),
+                rv=rv.cpu().numpy(), tv=tv.cpu().numpy(),
+                X=X_l.cpu().numpy())
+
+
+def _dist_rank(rank, world, tmp, dev, size):
+    """A rank of the dist phase's world of size["ranks"] gloo ranks on
+    ``dev`` (the card): the pod solve, the dense solve, then
+    dryrun_multichip; writes its numbers to ``tmp``/dist.{rank}.pkl."""
+    import pickle
+
+    import torch
+
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.entry import dryrun_multichip
+    from sfm_tpu_torch.parallel import make_scan_map_mesh
+    mesh = make_scan_map_mesh(1, device=dev)
+    pr = pod_problem(torch, dev, size["C"], size["L"], size["kmax"], world)
+    pod = pod_solve(torch, mesh, pr, dev, size["lm"], size["cg"])
+    del pr
+    dense = dense_solve(torch, mesh, dev, size)
+    native.reset_launch_counts()
+    dry = dryrun_multichip(world, device=dev)
+    sync(torch, dev)
+    dry = dict(launches={k: v for k, v in native.LAUNCHES.items() if v},
+               status=dry["metrics"]["status"].tolist(),
+               dense=[float(dry["dist_ba"][3].initial_cost),
+                      float(dry["dist_ba"][3].final_cost)],
+               large=[float(dry["dist_large_ba"][3].initial_cost),
+                      float(dry["dist_large_ba"][3].final_cost)],
+               engine_status=int(dry["large_engine"]["status"]))
+    with open(f"{tmp}/dist.{rank}.pkl", "wb") as f:
+        pickle.dump(dict(pod=pod, dense=dense, dryrun=dry), f)
+
+
+def fleet_record(torch, step, states, frames, native=None, sites=None):
+    """Step a fleet through ``frames`` (uint8 [T, B, H, W] on the card):
+    per frame the statuses, keyframe counts and poses, at the end the
+    keyframes and landmarks; with ``native`` and ``sites``
+    (``count_k1_sites``), per step the scans RUNNING before it and the
+    K1 launches at the tracking step's sites and the K5 launches in it."""
+    from sfm_tpu_torch.engine.state import RUNNING
+    rec = {k: [] for k in ("status", "n_keyframes", "rvec", "tvec")}
+    steps = []
+    for images in frames:
+        running = int((states.status == RUNNING).sum())
+        if native is not None:
+            n0, s0 = dict(native.LAUNCHES), dict(sites)
+        states, m = step(states, images)
+        for k in rec:
+            rec[k].append(m[k].cpu().numpy())
+        if native is not None:
+            steps.append(dict(running=running, k1_tracking=sum(
+                v - s0.get(k, 0) for k, v in sites.items()
+                if k.startswith("tracking.")),
+                k5=native.LAUNCHES["patch_sampler"] - n0["patch_sampler"]))
+    out = {k: np.stack(v) for k, v in rec.items()}
+    kf, lms = states.kfs, states.lms
+    out.update(kf_valid=kf.valid, kf_rvec=kf.frames.rvec,
+               kf_tvec=kf.frames.tvec, kf_frame_no=kf.frames.frame_no,
+               lm_valid=lms.valid, lm_xyz=lms.xyz)
+    out = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    return out, steps
+
+
+def _fleet_rank(rank, world, tmp, frames_path, dev, size):
+    """A rank of the sharded fleet: its block of the fleet's scans through
+    ``build_sharded_step`` on a (world, 1) mesh, the block of states left
+    on the device it was made on by ``shard_batched_state``'s default;
+    writes its record, its per-step launches, its launch counts and (rank
+    0) its K1 calls at the tracking step to ``tmp``/fleet.{rank}.pkl."""
+    import pickle
+
+    import torch
+
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.config import FLAGSHIP, SfMConfig
+    from sfm_tpu_torch.engine.state import CameraParams, init_batched_state
+    from sfm_tpu_torch.parallel import (build_sharded_step,
+                                        make_scan_map_mesh,
+                                        shard_batched_state)
+    cfg = SfMConfig(**(size["cfg"] or FLAGSHIP))
+    Kt = torch.as_tensor(size["K"])
+    cam = CameraParams(K=Kt, d=torch.zeros(5), Kopt=Kt)
+    mesh = make_scan_map_mesh(world, device=dev)
+    frames = np.load(frames_path)
+    states = shard_batched_state(
+        init_batched_state(cfg, frames.shape[1], dev), mesh)
+    blocks = [shard_batched_state(torch.as_tensor(f), mesh, device=dev)
+              for f in frames]
+    calls = [] if rank == 0 else None
+    sites, restore = count_k1_sites(native, record=calls,
+                                    record_sites=("tracking.",))
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rec, steps = fleet_record(
+            torch, build_sharded_step(cfg, cam, mesh), states, blocks,
+            native, sites)
+    finally:
+        restore()
+    sync(torch, dev)
+    out = dict(record=rec, steps=steps, secs=time.perf_counter() - t0,
+               launches={k: v for k, v in native.LAUNCHES.items() if v},
+               scan_rank=mesh.get_local_rank("scan"),
+               state_device=str(states.status.device),
+               k1_calls=[(site, tuple(x.cpu() if torch.is_tensor(x) else x
+                                      for x in args))
+                         for site, args in calls or ()])
+    with open(f"{tmp}/fleet.{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def _rank_main(rank, fn, world, store, dev, timeout, args):
+    """A spawned rank: full float32 matmuls; on the card its device (the
+    ranks of a world share card 0: NCCL takes one rank per card, so they
+    join under gloo), on the CPU one thread.  With ``store`` it joins a
+    gloo world of ``world`` ranks through that file store around
+    ``fn(rank, world, *args)``; without, ``fn`` joins one itself."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.device(dev).type == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    if store is None:
+        return fn(rank, world, *args)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_world(fn, world, args, store=None, dev="cpu",
+                timeout=DIST_TIMEOUT):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes on
+    ``dev``, joined in a gloo world through the file store ``store``
+    (``_rank_main``).  A rank that raises fails them all, and a world
+    still running after ``timeout`` seconds is killed and raises
+    TimeoutError."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(
+        _rank_main, args=(fn, world, store, dev, timeout, args),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{fn.__name__}: {world} ranks still "
+                               f"running after {timeout} s")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pod_world_of_one(torch, pr, dev, lm, cg):
+    """The pod solve as a world of one (NCCL on the card), through
+    torchrun's variables, ``initialize_hosts`` and ``make_scan_map_mesh``
+    on their defaults (``device`` aside: the CPU where the phase is
+    rehearsed)."""
+    import os
+
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.parallel import initialize_hosts, make_scan_map_mesh
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    on_card = torch.device(dev).type == "cuda"
+    try:
+        if on_card:
+            initialize_hosts()
+            mesh = make_scan_map_mesh()
+        else:
+            initialize_hosts(device=dev)
+            mesh = make_scan_map_mesh(device=dev)
+        out = pod_solve(torch, mesh, pr, dev, lm, cg)
+        out.update(backend=dist.get_backend(),
+                   mesh_shape=list(mesh.mesh.shape))
+        return out
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def run_dist(torch, dev, workers=RENDER_WORKERS, size=None):
+    """The dist phase (see the module docstring) at ``size`` (DIST_SIZE;
+    smaller where it is rehearsed on the CPU, where no kernel launches).
+    Returns its numbers, with the pod problem under "keep" for
+    ``pod_kernel_rows``."""
+    import pickle
+    import tempfile
+
+    from sfm_tpu_torch.ba.core import run_ba
+    from sfm_tpu_torch.ba.residuals import Observations
+    from sfm_tpu_torch.config import FLAGSHIP, SfMConfig
+    from sfm_tpu_torch.engine.state import CameraParams, init_batched_state
+    from sfm_tpu_torch.parallel import build_batched_step
+    size = size or DIST_SIZE
+    on_card = torch.device(dev).type == "cuda"
+    n, lm, cg = size["ranks"], size["lm"], size["cg"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    pr = pod_problem(torch, dev, size["C"], size["L"], size["kmax"], n)
+    one = pod_world_of_one(torch, pr, dev, lm, cg)
+    log(f"[dist] pod C={size['C']} L={size['L']} kmax={size['kmax']} "
+        f"({size['L'] * size['kmax']} observations), 1 rank under "
+        f"{one['backend']}, mesh {one['mesh_shape']}: tables "
+        f"{one['table_shape']} in {one['partition_s']:.2f} s; "
+        f"{one['ms_per_lm_iter']:.3f} ms per LM iteration ({lm} LM x {cg} "
+        f"CG), {one['all_reduce_ms']:.4f} ms per CG all-reduce; cost "
+        f"{one['initial_cost']:.6e} -> {one['final_cost']:.6e}, "
+        f"{one['accepted']} accepted; launches {one['launches']}")
+    cfg = SfMConfig(**(size["cfg"] or FLAGSHIP))
+    nf, n_fleet = size["fleet_scans"], size["fleet_ranks"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_world(_dist_rank, n, (tmp, dev, size), f"{tmp}/world_pod",
+                    dev)
+        world_pod_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(n):
+            with open(f"{tmp}/dist.{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        H, W = cfg.image_size
+        frames = np.concatenate(list(rendered_chunks(
+            size["fleet_frames"], 2, size["K"], H, W, workers, scene="fleet",
+            orbit=FLEET_ORBIT, batch=nf)))
+        np.save(f"{tmp}/frames.npy", frames)
+        t0 = time.perf_counter()
+        spawn_world(_fleet_rank, n_fleet,
+                    (tmp, f"{tmp}/frames.npy", dev, size),
+                    f"{tmp}/world_fleet", dev)
+        world_fleet_s = time.perf_counter() - t0
+        fleet = []
+        for r in range(n_fleet):
+            with open(f"{tmp}/fleet.{r}.pkl", "rb") as f:
+                fleet.append(pickle.load(f))
+    # the pod on n gloo ranks against one rank
+    pods = [r["pod"] for r in ranks]
+    for r, p in enumerate(pods):
+        log(f"[dist] pod, gloo rank {r} of {n} (map position "
+            f"{p['map_rank']}): tables {p['table_shape']} in "
+            f"{p['partition_s']:.2f} s; {p['ms_per_lm_iter']:.3f} ms per LM "
+            f"iteration, {p['all_reduce_ms']:.4f} ms per CG all-reduce; cost "
+            f"{p['initial_cost']:.6e} -> {p['final_cost']:.6e}; launches "
+            f"{p['launches']}")
+    expect = {k: v * on_card for k, v in (
+        ("ba_linearize", 1 + lm), ("schur_apply", lm * (cg + 1)),
+        ("schur_gather", lm))}
+    drv = float(np.abs(pods[0]["rv"] - one["rv"]).max())
+    d_cost = abs(pods[0]["final_cost"] - one["final_cost"]) \
+        / one["final_cost"]
+    log(f"[dist] pod, {n} ranks against 1: max |rvec| difference "
+        f"{drv:.3e}, final cost {d_cost:.3e} relative")
+    # the dense solver at FLAGSHIP's width against run_ba
+    dense = [r["dense"] for r in ranks]
+    p = dense_problem(size["dense_c"], size["dense_l"], size["dense_obs"])
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    rv_s, _, X_s, st_s = run_ba(
+        t(p["K"]), t(p["rv"]), t(p["tv"]), t(p["X"]),
+        Observations(*(t(o) for o in p["obs"])), cam_free=t(p["cam_free"]),
+        lm_free=t(p["lm_free"]), iterations=size["dense_lm"], tol=0.0)
+    X_d = np.concatenate([d["X"] for d in sorted(
+        dense, key=lambda d: d["map_rank"])])
+    c_s = float(st_s.final_cost)
+    dense_err = dict(rvec=float(np.abs(dense[0]["rv"] - rv_s.cpu().numpy())
+                                .max()),
+                     xyz=float(np.abs(X_d - X_s.cpu().numpy()).max()),
+                     cost=abs(dense[0]["final_cost"] - c_s))
+    log(f"[dist] dense C={size['dense_c']} L={size['dense_l']} on {n} gloo "
+        f"ranks: {dense[0]['ms_per_lm_iter']:.3f} ms per LM iteration, cost "
+        f"{dense[0]['initial_cost']:.6e} -> {dense[0]['final_cost']:.6e}; "
+        f"against run_ba: {dense_err}")
+    # the sharded fleet against one process per block at the same batch
+    Kt = torch.as_tensor(size["K"])
+    cam = CameraParams(K=Kt, d=torch.zeros(5), Kopt=Kt)
+    nb = nf // n_fleet
+    staged = torch.as_tensor(frames, device=dev)
+    fleet_equal, fleet_steps_ok = [], []
+    for out in fleet:
+        b = out["scan_rank"]
+        ref, _ = fleet_record(
+            torch, build_batched_step(cfg, cam, first_scan=b * nb),
+            init_batched_state(cfg, nb, dev), staged[:, b * nb:(b + 1) * nb])
+        diff = [k for k in ref if not np.array_equal(ref[k],
+                                                     out["record"][k])]
+        fleet_equal.append(diff)
+        steps = out["steps"]
+        fleet_steps_ok.append(
+            all(s["k1_tracking"] == 2 * on_card for s in steps
+                if s["running"])
+            and all(s["k5"] == on_card for s in steps if s["running"] == nb)
+            and any(s["running"] == nb for s in steps))
+        st = out["record"]["status"]
+        log(f"[dist] sharded fleet, rank {b} (scans {b * nb}-"
+            f"{(b + 1) * nb - 1}): statuses by frame "
+            f"{[''.join(map(str, s)) for s in st.tolist()]}; keyframes "
+            f"{out['record']['n_keyframes'][-1].tolist()}; per step (RUNNING "
+            f"before, K1 at tracking, K5) "
+            f"{[(s['running'], s['k1_tracking'], s['k5']) for s in steps]}; "
+            f"{out['secs']:.2f} s; differs from one process in {diff}")
+    dry = [r["dryrun"] for r in ranks]
+    log(f"[dist] dryrun_multichip({n}): statuses "
+        f"{[d['status'] for d in dry]}, dense {dry[0]['dense']}, large "
+        f"{dry[0]['large']}, launches {dry[0]['launches']}")
+    checks = {
+        "the pod cost falls on 1 rank and on every gloo rank":
+            one["final_cost"] < one["initial_cost"] and all(
+                p["final_cost"] < p["initial_cost"] for p in pods),
+        "every gloo rank's pod poses are rank 0's bit for bit": all(
+            np.array_equal(p["rv"], pods[0]["rv"])
+            and np.array_equal(p["tv"], pods[0]["tv"]) for p in pods),
+        f"{n} ranks against 1: rvec within 1e-3, final cost within 1%":
+            drv <= 1e-3 and d_cost <= 1e-2,
+        "K2 / K3 / K3-gather launched as the loop runs them, on 1 rank and "
+        "on every gloo rank": one["launches"] == expect and all(
+            p["launches"] == expect for p in pods),
+        "the pod's landmarks finite": one["landmarks_finite"] and all(
+            p["landmarks_finite"] for p in pods),
+        "the dense cost falls": all(d["final_cost"] < d["initial_cost"]
+                                    for d in dense),
+        "every gloo rank's dense poses are rank 0's bit for bit": all(
+            np.array_equal(d["rv"], dense[0]["rv"])
+            and np.array_equal(d["tv"], dense[0]["tv"]) for d in dense),
+        "the dense solver agrees with run_ba (rvec 1e-4, xyz 1e-3, cost "
+        "1e-2 x max(cost, 1))": dense_err["rvec"] <= 1e-4
+        and dense_err["xyz"] <= 1e-3
+        and dense_err["cost"] <= 1e-2 * max(c_s, 1.0),
+        "each rank's block of the fleet equals a fleet of its scans in one "
+        "process bit for bit": all(not d for d in fleet_equal),
+        "the sharded fleet's scans track": all(
+            (out["record"]["status"][-1] == 1).sum() >= nb - 1
+            for out in fleet),
+        "K1 twice and K5 once per batched tracking step on each rank":
+            all(fleet_steps_ok),
+        "each rank's block of states stays on the device it was made on "
+        "(shard_batched_state's default)": all(
+            torch.device(out["state_device"]).type == torch.device(dev).type
+            for out in fleet),
+        "dryrun_multichip completes on every rank with its costs not "
+        "rising": all(np.isfinite(d[k][1]) and d[k][1] <= d[k][0]
+                      for d in dry for k in ("dense", "large")),
+    }
+    run_checks("dist", checks)
+    launches = {}
+    for counts in ([one["launches"]] + [p["launches"] for p in pods]
+                   + [d["launches"] for d in dry]
+                   + [out["launches"] for out in fleet]):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    phase_s = time.perf_counter() - t_phase
+    log(f"[dist] the phase took {phase_s:.1f} s (the world of {n} spawned "
+        f"and done in {world_pod_s:.1f} s, the world of {n_fleet} in "
+        f"{world_fleet_s:.1f} s); launches over every rank {launches}")
+    strip = lambda d: {k: v for k, v in d.items()  # noqa: E731
+                       if k not in ("rv", "tv", "X")}
+    return dict(
+        pod_world_of_one=strip(one), pod_gloo=[strip(p) for p in pods],
+        pod_rvec_vs_one=drv, pod_cost_vs_one=d_cost,
+        dense=[strip(d) for d in dense], dense_vs_run_ba=dense_err,
+        fleet=[dict(scan_rank=out["scan_rank"], secs=out["secs"],
+                    steps=out["steps"], launches=out["launches"],
+                    statuses=out["record"]["status"].tolist())
+               for out in fleet],
+        dryrun=dry, launches=launches, seconds=phase_s,
+        world_pod_s=world_pod_s, world_fleet_s=world_fleet_s,
+        checks={k: bool(v) for k, v in checks.items()},
+        keep=dict(pr=pr, launches_rank0=pods[0]["launches"],
+                  launches_one=one["launches"], size=size, cfg=cfg,
+                  fleet_k1_calls=fleet[0]["k1_calls"],
+                  fleet_images=frames[-1, :nb],
+                  fleet_k5_launches=sum(s["k5"] for s in fleet[0]["steps"]
+                                        if s["running"] == nb)))
+
+
+def pod_kernel_rows(torch, dev, keep):
+    """K2, K3 and K3-gather against their plain versions on shard 0 of the
+    pod at each of its shapes with ``ba_kernel_rows``, timed: the world of
+    one's whole table (C 5120, L 2^20, kmax 8; its launches the world of
+    one's in its timed solve) and a shard of the gloo world (L 262144;
+    gloo rank 0's launches), each also per LM iteration.  Returns
+    [(name, row)]."""
+    from sfm_tpu_torch.ba.large import camera_slots
+    from sfm_tpu_torch.geometry.rotations import exp_so3
+    from sfm_tpu_torch.parallel import partition_tables
+    pr, size = keep["pr"], keep["size"]
+    out = []
+    for n, what, launches in ((1, "pod world of one", keep["launches_one"]),
+                              (size["ranks"], "pod shard",
+                               keep["launches_rank0"])):
+        tabs, shard = partition_tables(pr["obs"], pr["C"], pr["L"], n,
+                                       pr["nmax"][n], pr["kmax"], device=dev)
+        lm_cam, lm_uv, lm_w = tabs.lm_cam[0], tabs.lm_uv[0], tabs.lm_w[0]
+        del tabs
+        cs = camera_slots(lm_cam, lm_w, pr["C"])
+        args = (pr["K"], exp_so3(pr["rv"]).contiguous(), pr["tv"],
+                pr["X"][:shard].contiguous(),
+                pr["lm_free"][:shard].float(), pr["cam_free"].float(),
+                lm_cam, lm_uv, lm_w, 0.0)
+        label = f"{what} C={pr['C']} L={shard} kmax={pr['kmax']}"
+        rows = ba_kernel_rows(torch, label, args, cs, True,
+                              names=DIST_KERNELS)
+        for name, row in rows.items():
+            row["launches"] = launches[name]
+            row["launches_per_lm_iteration"] = row["launches"] / size["lm"]
+            out.append((name, row))
+    return out
+
+
+def sharded_fleet_rows(torch, dev, keep):
+    """K1 and K5 at the sharded fleet's per-rank batch (the scans of one
+    rank: 4 x 512 keypoints at FLAGSHIP): K1 replayed on gloo rank 0's own
+    calls at the tracking step (``k1_by_site``: each call bit for bit
+    against the plain version, timed; launches rank 0's at that site), and
+    K5 on the canvases of rank 0's block at the last frame
+    (``fleet_k5_row``; launches rank 0's batched ones, one per tracking
+    step in which all its scans ran)."""
+    calls = [(site, tuple(x.to(dev) if torch.is_tensor(x) else x
+                          for x in args))
+             for site, args in keep["fleet_k1_calls"]]
+    k1 = k1_by_site(torch, calls, "sharded fleet block")
+    k5 = fleet_k5_row(torch, keep["cfg"],
+                      torch.as_tensor(keep["fleet_images"], device=dev),
+                      "sharded fleet block")
+    k5["launches"] = keep["fleet_k5_launches"]
+    return k1, k5
+
+
 def ring_runs(torch, n):
     """The ring phase alone, ``n`` times on one card: each run's checks and
     numbers as a JSON line (its K1 calls are not replayed), then whether
@@ -2976,6 +3616,16 @@ def main(argv):
         failed = fleet_runs(torch, int(argv[argv.index("--fleet") + 1]))
         print(card[0])
         return int(failed > 0)
+    if "--dist" in argv:
+        dist = run_dist(torch, dev)
+        keep = dist.pop("keep")
+        pod = pod_kernel_rows(torch, dev, keep)
+        k1, k5 = sharded_fleet_rows(torch, dev, keep)
+        print(json.dumps({"dist": dist, "pod_kernels": pod,
+                          "sharded_fleet_k1": k1, "sharded_fleet_k5": k5},
+                         default=str))
+        print(card[0])
+        return 0
     from sfm_tpu_torch.config import FLAGSHIP, LONGSCAN, RING, SLICE, SfMConfig
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
@@ -3011,6 +3661,7 @@ def main(argv):
     fleet_k1_calls = []
     fleet = run_fleet(torch, dev, SfMConfig(**FLAGSHIP),
                       k1_calls=fleet_k1_calls, single_fps=flagship["fps"])
+    dist = run_dist(torch, dev)
     # the kernels against their plain versions, with the timings under
     # torch.profiler last: a profiler session leaves the host slower for
     # the host-bound phases after it
@@ -3042,8 +3693,13 @@ def main(argv):
         raise AssertionError("K1: the recorded calls are not the fleet's "
                              "tracking steps' launches")
     del fleet_k1_calls[:]
-    fleet_k5 = fleet_k5_row(torch, fleet)
+    fleet_k5 = fleet_k5_row(torch, fleet["keep"]["driver"].cfg,
+                            fleet["keep"]["chunk"][-1])
     rows.update(check_ba_kernels(torch, dev))
+    dist_keep = dist.pop("keep")
+    pod_rows = pod_kernel_rows(torch, dev, dist_keep)
+    block_k1, block_k5 = sharded_fleet_rows(torch, dev, dist_keep)
+    del dist_keep
     bench.update(bench_ba_device(torch, bench_once))
     long_dev = longscan_device(torch, long_cfg, longscan)
     fleet["device"] = fleet_device(torch, fleet)
@@ -3060,9 +3716,11 @@ def main(argv):
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=flagship["launches"][name],
-            launches_by_phase={ph: out["launches"][name] for ph, out in (
-                ("flagship", flagship), ("pipeline", pipeline),
-                ("serve", serve))},
+            launches_by_phase=dict(
+                {ph: out["launches"][name] for ph, out in (
+                    ("flagship", flagship), ("pipeline", pipeline),
+                    ("serve", serve))},
+                dist=dist["launches"].get(name, 0)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"],
@@ -3086,6 +3744,22 @@ def main(argv):
             ops_per_call=r["ops_per_call"],
             **{k: r[k] for k in ("launches_per_global_ba",
                                  "launches_per_mapping_pass") if k in r}))
+    # K2, K3 and K3-gather at the pod's shapes: the world of one's table
+    # and a gloo rank's shard; their launches are those of that run's
+    # timed distributed solve
+    for name, r in pod_rows:
+        if r["ms"] is None or r["plain_ms"] is None:
+            raise AssertionError(f"{name} {r['shape']}: torch.profiler "
+                                 f"recorded no device time")
+        kernels.append(dict(
+            name=name, route="cuda", source=source[name][0],
+            replaces=source[name][1], launches=r["launches"],
+            launches_per_lm_iteration=r["launches_per_lm_iteration"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"],
+            event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
+            ops_per_call=r["ops_per_call"]))
     # K1 at the long scan's own calls, by call site and route: the
     # launches are the phase's, the times per call from the replay
     for label, r in long_k1.items():
@@ -3133,6 +3807,28 @@ def main(argv):
         bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
         ops_per_call=r["ops_per_call"]))
+    # K1 and K5 at the sharded fleet's per-rank batch; launches are gloo
+    # rank 0's in the dist phase
+    for label, r in block_k1.items():
+        kernels.append(dict(
+            name="hamming_match", route="cuda", source=source[
+                "hamming_match"][0], replaces=source["hamming_match"][1],
+            launches=r["calls"], max_abs_err=0.0, ms=r["us"] / 1e3,
+            plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
+            bound_by=r["bound_by"], library_ms=None,
+            shape=f"sharded fleet block {label} {' '.join(r['shapes'])}"))
+    r = block_k5
+    if r["ms"] is None or r["plain_ms"] is None or r["library_ms"] is None:
+        raise AssertionError("K5 sharded fleet block: torch.profiler "
+                             "recorded no device time")
+    kernels.append(dict(
+        name="patch_sampler", route="cuda", source=source["patch_sampler"][0],
+        replaces=source["patch_sampler"][1], launches=r["launches"],
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], shape=r["shape"],
+        event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
+        ops_per_call=r["ops_per_call"]))
     longscan.update(device=long_dev, k1_by_site=long_k1)
     ring.update(k1_by_site=ring_k1)
     fleet.update(k1_by_site=fleet_k1)
@@ -3151,7 +3847,7 @@ def main(argv):
         "cg": {k: v for k, v in cg.items() if k != "launches"},
         "pipeline": pipeline, "serve": serve,
         "dense_rerun_digest_equal": dense_again["digest"] == dense["digest"],
-        "longscan": longscan, "ring": ring, "fleet": fleet,
+        "longscan": longscan, "ring": ring, "fleet": fleet, "dist": dist,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))

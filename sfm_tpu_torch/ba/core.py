@@ -50,11 +50,12 @@ class _Sums(NamedTuple):
         return cls(RowSum(obs.cam_idx, n_cams), RowSum(obs.lm_idx, n_lms))
 
 
-def _assemble_cg(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
-                 huber_delta: float, sums: _Sums):
+def _linearized(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
+                huber_delta: float, sums: _Sums):
     """The normal-equation blocks without the [C, L] coupling: U, V, the
-    per-observation coupling W_o [O, 6, 3], g_cam, g_lm; and the robust
-    cost."""
+    per-observation coupling W_o [O, 6, 3], g_cam, g_lm; with the
+    residuals r [O, 2] and the IRLS weights w [O] (obs.w times the Huber
+    weights) they were formed with."""
     r, A, B = residuals_and_jacobians(K, exp_so3(rvec), tvec, xyz, obs)
     w = obs.w * huber_weights(r, huber_delta)
     A = A * (w * cam_free[obs.cam_idx])[:, None, None]
@@ -65,18 +66,31 @@ def _assemble_cg(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
     V = sums.lm(Bt @ B)
     g_cam = sums.cam(-(At @ rw[:, :, None])[..., 0])
     g_lm = sums.lm(-(Bt @ rw[:, :, None])[..., 0])
-    return (U, V, At @ B, g_cam, g_lm), robust_cost(r, obs.w, huber_delta)
+    return (U, V, At @ B, g_cam, g_lm), r, w
+
+
+def _couple(blocks, pair_sum: RowSum, C: int, L: int):
+    """The blocks with the coupling W_o summed into W [C, L, 6, 3]
+    (``pair_sum`` over the rows cam * L + lm)."""
+    U, V, W_o, g_cam, g_lm = blocks
+    return U, V, pair_sum(W_o).reshape(C, L, 6, 3), g_cam, g_lm
+
+
+def _assemble_cg(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
+                 huber_delta: float, sums: _Sums):
+    """``_linearized``'s blocks and the robust cost."""
+    blocks, r, _ = _linearized(K, rvec, tvec, xyz, obs, cam_free, lm_free,
+                               huber_delta, sums)
+    return blocks, robust_cost(r, obs.w, huber_delta)
 
 
 def _assemble(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
               huber_delta: float, sums: _Sums, pair_sum: RowSum):
     """``_assemble_cg``'s blocks with the coupling summed into
-    W [C, L, 6, 3] (``pair_sum`` over the rows cam * L + lm)."""
-    (U, V, W_o, g_cam, g_lm), cost = _assemble_cg(
-        K, rvec, tvec, xyz, obs, cam_free, lm_free, huber_delta, sums)
-    C, L = rvec.shape[0], xyz.shape[0]
-    W = pair_sum(W_o).reshape(C, L, 6, 3)
-    return (U, V, W, g_cam, g_lm), cost
+    W [C, L, 6, 3] (``_couple``), and the robust cost."""
+    blocks, cost = _assemble_cg(K, rvec, tvec, xyz, obs, cam_free, lm_free,
+                                huber_delta, sums)
+    return _couple(blocks, pair_sum, rvec.shape[0], xyz.shape[0]), cost
 
 
 def _damp(M, lam):

@@ -188,41 +188,37 @@ def _pcg(matvec, M_inv, rhs, iterations: int):
     return x
 
 
-def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
-                 lm_free, iterations: int = 15, cg_iterations: int = 25,
-                 lam0: float = 1e-3, lam_up: float = 4.0,
-                 lam_down: float = 2.0, huber_delta: float = 0.0,
-                 tol: float = 1e-4, precond: str = "jacobi_u"
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                            BAStats]:
-    """Implicit-Schur LM: an outer damping loop, an inner block-Jacobi PCG
-    on the reduced camera system.  cam_free [C] / lm_free [L] bool masks
-    freeze parameters.  One linearisation (K2) per LM iteration, at the
-    trial point; CG, the rhs and back-substitution go through K3; both
-    kernels share one ``camera_slots`` index per call.  One host read per
-    iteration (accept flag and early exit together)."""
-    if precond == "schur_diag":
-        raise NotImplementedError(
-            "precond='schur_diag' is not ported (ROADMAP.md, kept out on "
-            "purpose: a negative result that needs camera-major W blocks)")
-    if precond != "jacobi_u":
-        raise ValueError(f"unknown preconditioner {precond!r}")
+def _local(*ts):
+    """The per-camera sums of an unsharded problem are already whole."""
+    return ts
+
+
+def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
+              *, iterations: int, cg_iterations: int, lam0: float,
+              lam_up: float, lam_down: float, huber_delta: float, tol: float,
+              reduce=_local):
+    """The LM and PCG loop of ``run_large_ba`` on a landmark-major table.
+    ``reduce(*ts) -> ts`` sums per-camera partial sums over the shards of a
+    landmark-sharded problem (``parallel.dist_large_ba``): K2's U, g_cam and
+    cost, and K3's [C, 6] products; the identity on a whole problem.  Every
+    shard then holds the same camera terms and solves the camera system
+    itself.  One host read per iteration, after the cost is reduced, so
+    every shard reads the same accept flag."""
     C = rvec.shape[0]
-    cam_free_f = cam_free.to(torch.float32)
-    lm_free_f = lm_free.to(torch.float32)
-    lm_cam = tables.lm_cam.to(torch.int32).contiguous()
-    lm_uv = tables.lm_uv.contiguous()
-    lm_w = tables.lm_w.contiguous()
+    lm_cam = lm_cam.to(torch.int32).contiguous()
+    lm_uv = lm_uv.contiguous()
+    lm_w = lm_w.contiguous()
     K = K.contiguous()
     eye6 = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
     cslots = camera_slots(lm_cam, lm_w, C)
 
     def linearize(rvec, tvec, xyz):
-        *blocks, cost = ba_linearize(
+        W, V, g_lm, U, g_cam, cost = ba_linearize(
             K, exp_so3(rvec).contiguous(), tvec.contiguous(),
             xyz.contiguous(), lm_free_f, cam_free_f, lm_cam, lm_uv, lm_w,
             huber_delta, slots=cslots)
-        return blocks, cost
+        U, g_cam, cost = reduce(U, g_cam, cost)
+        return (W, V, g_lm, U, g_cam), cost
 
     blocks, cost = linearize(rvec, tvec, xyz)
     cost0 = cost
@@ -233,9 +229,9 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
         op = SchurOperator(W, lm_cam, damped_vinv(V, lam), cslots)
 
         def matvec(x):
-            return (Ud @ x[:, :, None])[..., 0] - op.w_vinv_wt_x(x)
+            return (Ud @ x[:, :, None])[..., 0] - reduce(op.w_vinv_wt_x(x))[0]
 
-        rhs = g_cam - op.w_vinv_g(g_lm, C)
+        rhs = g_cam - reduce(op.w_vinv_g(g_lm, C))[0]
         # block-Jacobi preconditioner: damped U blocks; _damp's 1e-6 floor
         # and this one are both kept, as in the JAX package
         d_cam = _pcg(matvec, _inv(Ud + 1e-6 * eye6), rhs, cg_iterations)
@@ -261,3 +257,29 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
     return rvec, tvec, xyz, BAStats(
         cost0, cost, torch.tensor(lam, dtype=torch.float32, device=dev),
         torch.tensor(accepted, dtype=torch.int32, device=dev))
+
+
+def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
+                 lm_free, iterations: int = 15, cg_iterations: int = 25,
+                 lam0: float = 1e-3, lam_up: float = 4.0,
+                 lam_down: float = 2.0, huber_delta: float = 0.0,
+                 tol: float = 1e-4, precond: str = "jacobi_u"
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            BAStats]:
+    """Implicit-Schur LM: an outer damping loop, an inner block-Jacobi PCG
+    on the reduced camera system.  cam_free [C] / lm_free [L] bool masks
+    freeze parameters.  One linearisation (K2) per LM iteration, at the
+    trial point; CG, the rhs and back-substitution go through K3; both
+    kernels share one ``camera_slots`` index per call.  One host read per
+    iteration (accept flag and early exit together)."""
+    if precond == "schur_diag":
+        raise NotImplementedError(
+            "precond='schur_diag' is not ported (ROADMAP.md, kept out on "
+            "purpose: a negative result that needs camera-major W blocks)")
+    if precond != "jacobi_u":
+        raise ValueError(f"unknown preconditioner {precond!r}")
+    return _large_lm(
+        K, rvec, tvec, xyz, tables.lm_cam, tables.lm_uv, tables.lm_w,
+        cam_free.to(torch.float32), lm_free.to(torch.float32),
+        iterations=iterations, cg_iterations=cg_iterations, lam0=lam0,
+        lam_up=lam_up, lam_down=lam_down, huber_delta=huber_delta, tol=tol)

@@ -37,9 +37,11 @@ from ..engine.step import step_frame
 from ..engine.tracking import fleet_tracking_step
 from ..mapstore import add_descriptors, tree_map
 from ..utils import PhaseTimer
+from .hosts import axis_shard, rank_device
 
-__all__ = ["MultiScanDriver", "build_batched_step", "init_batched_state",
-           "map_one", "scan_generator"]
+__all__ = ["MultiScanDriver", "build_batched_step", "build_sharded_step",
+           "init_batched_state", "map_one", "scan_generator",
+           "shard_batched_state"]
 
 
 def scan_generator(seed: int, scan: int, device) -> torch.Generator:
@@ -73,19 +75,22 @@ def map_one(cfg: SfMConfig, cam: CameraParams, state: SfMState) -> SfMState:
     return mapping_pass(cfg, cam, state, slot)
 
 
-def build_batched_step(cfg: SfMConfig, cam: CameraParams, seed: int = 7):
+def build_batched_step(cfg: SfMConfig, cam: CameraParams, seed: int = 7,
+                       first_scan: int = 0):
     """``(states [B, ...], images [B, H, W(, 3)]) -> (states, metrics)``:
     every scan takes its full step with inline mapping (the JAX package's
     ``vmap(build_step(cfg, cam))``).  RUNNING scans go through one batched
     ``fleet_tracking_step``, which maps each inserting scan on its own;
     the others through ``step_frame`` on their own slice.  The scans'
-    generators are made on the first call, seeded from (seed, scan)."""
+    generators are made on the first call, seeded from (seed, scan) with
+    the fleet's scan index ``first_scan + b``: a block of a larger fleet
+    draws what those scans draw in the whole fleet."""
     gens = []
 
     def step(states: SfMState, images: torch.Tensor):
         dev = states.status.device
         if not gens:
-            gens.extend(scan_generator(seed, b, dev)
+            gens.extend(scan_generator(seed, first_scan + b, dev)
                         for b in range(states.status.shape[0]))
         c = _on(cam, dev)
         imgs = images.to(device=dev, dtype=torch.float32)
@@ -104,6 +109,45 @@ def build_batched_step(cfg: SfMConfig, cam: CameraParams, seed: int = 7):
             for k, v in mb.items():
                 m[k][b] = v
         return states, m
+
+    return step
+
+
+def shard_batched_state(state, mesh, axis: str = "scan", device=None):
+    """This rank's contiguous block of a batched state (or of any tree of
+    tensors with the batch on the leading axis, such as the fleet's
+    images) split over ``axis`` of ``mesh``, on this rank's device of the
+    type of ``device`` or, by default, of each tensor's own device
+    (``hosts.rank_device``): a block of a fleet on the card stays on the
+    card, whatever backend the mesh's collectives use.  Raises when the
+    batch does not divide by the axis size."""
+    batch = (state.status if isinstance(state, SfMState) else state).shape[0]
+    _, pos, n = axis_shard(mesh, axis)
+    if batch % n:
+        raise ValueError(f"a batch of {batch} scans does not split over the "
+                         f"{n} ranks of axis {axis!r}")
+    lo, size = pos * (batch // n), batch // n
+    return tree_map(lambda x: x[lo:lo + size].to(
+        rank_device(device or x.device.type)).clone(), state)
+
+
+def build_sharded_step(cfg: SfMConfig, cam: CameraParams, mesh,
+                       axis: str = "scan", seed: int = 7):
+    """The batched step of this rank's block of a fleet split over
+    ``axis``: ``(states [b, ...], images [b, ...]) -> (states, metrics)``
+    on the blocks that ``shard_batched_state`` gives.  The scans are
+    independent, so there is no collective; each scan's generator is
+    seeded from its index in the whole fleet, so its stream does not
+    depend on how the fleet is split."""
+    inner = []
+
+    def step(states: SfMState, images: torch.Tensor):
+        if not inner:
+            b = states.status.shape[0]
+            pos = mesh.get_local_rank(axis)
+            inner.append(build_batched_step(cfg, cam, seed,
+                                            first_scan=pos * b))
+        return inner[0](states, images)
 
     return step
 

@@ -333,6 +333,13 @@ def test_imports_without_jax():
             "import sfm_tpu_torch.parallel, sfm_tpu_torch.parallel.multiscan\n"
             "import sfm_tpu_torch.parallel.pipeline, sfm_tpu_torch.serving\n"
             "import sfm_tpu_torch.frame_queries\n"
+            "import sfm_tpu_torch.parallel.hosts, sfm_tpu_torch.entry\n"
+            "import sfm_tpu_torch.parallel.dist_ba\n"
+            "import sfm_tpu_torch.parallel.dist_large_ba\n"
+            "from sfm_tpu_torch.parallel import (initialize_hosts, "
+            "make_scan_map_mesh, partition_observations, build_dist_ba, "
+            "partition_tables, build_dist_large_ba, build_sharded_step, "
+            "shard_batched_state)\n"
             "from sfm_tpu_torch.ba import run_ba_cg\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"

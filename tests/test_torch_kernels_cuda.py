@@ -781,3 +781,88 @@ def test_pipeline_maps_on_its_own_stream(cuda):
     tree_map(lambda a, b: equal.append(torch.equal(a, b)), on_map,
              on_default)
     assert all(equal)
+
+
+def _dist_problem(seed=11, C=8, L=160, kmax=5):
+    rng = np.random.default_rng(seed)
+    _, init, obs = ba_scene(rng, C, L, kmax, noise_px=0.5, dead_p=0.05,
+                            min_obs=2)
+    return dict(K=TEST_K, rv=init["rv"], tv=init["tv"], X=init["X"],
+                cam_free=np.arange(C) > 1, lm_free=np.ones(L, bool),
+                obs=obs)
+
+
+def test_dist_large_ba_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """The distributed implicit-Schur solver on 2 gloo ranks sharing the
+    card (NCCL takes one rank per card): each rank launches K2, K3 and
+    K3-gather on its shard, the ranks' poses are equal bit for bit, and
+    they agree with run_large_ba (tol 0) on the whole problem on the card
+    at tests/test_parallel.py's limits."""
+    from sfm_tpu_torch.ba.large import build_tables, run_large_ba
+    from sfm_tpu_torch.parallel import partition_tables
+    from torch_port_util import dist_solver_worker, load_ranks, spawn_ranks
+    p = _dist_problem()
+    C, L = p["rv"].shape[0], p["X"].shape[0]
+    obs = Observations(*map(to_t, p["obs"]))
+    tabs, shard = partition_tables(obs, C, L, 2, L, 5)
+    kw = dict(iterations=8, cg_iterations=25, huber_delta=2.0)
+    job = ("card", "large", dict(n_cams=C, shard_size=shard, **kw),
+           dict(p, tables=tuple(t.numpy() for t in tabs)))
+    spawn_ranks(dist_solver_worker, 2, (tmp_path, [job], "cuda"), tmp_path,
+                timeout=240.0, device="cuda")
+    ranks = load_ranks(tmp_path, "card", 2)
+    for r in ranks:
+        assert min(r["launches"]) > 0, r["launches"]
+        for k in ("rv", "tv", "final_cost"):
+            np.testing.assert_array_equal(r[k], ranks[0][k])
+    X = np.concatenate([r["X"] for r in sorted(
+        ranks, key=lambda r: int(r["map_rank"]))])
+    t = lambda a: to_t(a).to(cuda)  # noqa: E731
+    tables = build_tables(obs, C, L, L, 5)
+    rv_s, _, X_s, st = run_large_ba(
+        t(p["K"]), t(p["rv"]), t(p["tv"]), t(p["X"]),
+        type(tables)(*map(t, tables)), cam_free=t(p["cam_free"]),
+        lm_free=t(p["lm_free"]), tol=0.0, **kw)
+    assert float(ranks[0]["final_cost"]) < float(ranks[0]["initial_cost"])
+    np.testing.assert_allclose(ranks[0]["rv"], rv_s.cpu().numpy(), atol=1e-3)
+    np.testing.assert_allclose(X, X_s.cpu().numpy(), atol=5e-3)
+
+
+def test_partition_tables_on_the_card_equals_the_host(cuda):
+    from sfm_tpu_torch.parallel import partition_tables
+    p = _dist_problem(seed=12, C=10, L=400, kmax=6)
+    obs = Observations(*map(to_t, p["obs"]))
+    host, shard = partition_tables(obs, 10, 400, 4, 200, 6)
+    card, shard_c = partition_tables(obs, 10, 400, 4, 200, 6, device=cuda)
+    assert shard_c == shard
+    for a, b in zip(card, host):
+        assert a.is_cuda and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+    with pytest.raises(ValueError, match="drops"):
+        partition_tables(obs, 10, 400, 4, 20, 6, device=cuda)
+
+
+def test_shard_batched_state_keeps_a_card_fleet_on_the_card(cuda):
+    """On a gloo mesh (its device type "cpu", as for gloo ranks sharing
+    the card) the default block of a fleet made on the card stays on the
+    card; ``device="cpu"`` still moves it."""
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.parallel import (init_batched_state,
+                                        make_scan_map_mesh,
+                                        shard_batched_state)
+    from torch_port_util import TEST_CFG_KW
+    mesh = make_scan_map_mesh(1, device="cpu")
+    try:
+        assert dist.get_backend() == "gloo" and mesh.device_type == "cpu"
+        states = init_batched_state(SfMConfig(**TEST_CFG_KW), 2, cuda)
+        block = shard_batched_state(states, mesh)
+        assert block.status.is_cuda and block.kfs.frames.rvec.is_cuda
+        assert torch.equal(block.status, states.status)
+        images = torch.zeros((2, 4, 4), device=cuda)
+        assert shard_batched_state(images, mesh).is_cuda
+        assert not shard_batched_state(states, mesh,
+                                       device="cpu").status.is_cuda
+    finally:
+        dist.destroy_process_group()

@@ -37,6 +37,8 @@ def smoke():
 
 @pytest.fixture
 def counted_k1(monkeypatch):
+    """K1's dispatch counts its calls on the CPU; the counts are zeroed
+    afterwards (other files' tests read them)."""
     real = mp.hamming_match
 
     def count(*args):
@@ -44,6 +46,8 @@ def counted_k1(monkeypatch):
         return real(*args)
 
     monkeypatch.setattr(mp, "hamming_match", count)
+    yield
+    native.reset_launch_counts()
 
 
 def test_live_phase(smoke, counted_k1):

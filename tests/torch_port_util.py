@@ -317,3 +317,181 @@ def gradient_distances(args, g_lm, g_cam):
         out.append(float(((g.double() - ref[j]).abs()
                           / scale.clamp(min=1e-30)).max()))
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# ranks of a torch.distributed world, spawned under gloo.  The workers
+# live here (spawn re-imports this module, which imports no JAX in
+# the children); each writes its results to a file for the test.
+# ---------------------------------------------------------------------------
+
+def spawn_ranks(fn, world: int, args, tmp_path, timeout: float = 180.0,
+                init: bool = True, device="cpu"):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes on
+    ``device``, joined in a gloo world through a ``file://`` store under
+    ``tmp_path`` (with ``init``; otherwise ``fn`` joins one itself), by
+    chip_smoke.py's ``spawn_world``.  A rank that raises fails the whole
+    spawn; one still running after ``timeout`` seconds is killed, and the
+    spawn raises TimeoutError."""
+    import importlib
+    import os
+    import sys
+    # the ranks find chip_smoke's spawned function by module name
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    smoke = importlib.import_module("chip_smoke")
+    smoke.spawn_world(fn, world, args,
+                      str(tmp_path / "rendezvous") if init else None,
+                      device, timeout)
+
+
+def load_ranks(out_dir, name: str, world: int):
+    """The ``world`` ranks' result files ``{name}.{rank}.npz``."""
+    return [dict(np.load(out_dir / f"{name}.{r}.npz")) for r in range(world)]
+
+
+def dist_solver_worker(rank, world, out_dir, jobs, device="cpu"):
+    """Each job (name, solver "dense" or "large", its build keywords, the
+    numpy arguments of the returned fn) on a (1, world) mesh over "map",
+    its tensors on ``device``; writes {name}.{rank}.npz with rvec, tvec,
+    xyz (this rank's shard), the stats, the rank's position on "map" and
+    this rank's launches of K2, K3 and K3-gather."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.ba.large import ObsTables
+    from sfm_tpu_torch.ba.residuals import Observations
+    from sfm_tpu_torch.parallel import (build_dist_ba, build_dist_large_ba,
+                                        make_scan_map_mesh)
+    mesh = make_scan_map_mesh(1, device=device)
+    dev = lambda a: to_t(a).to(device)  # noqa: E731
+    for name, solver, kw, a in jobs:
+        if solver == "dense":
+            build, tab = build_dist_ba, Observations(*map(dev, a["obs"]))
+        else:
+            build = build_dist_large_ba
+            tab = ObsTables(*(None if x is None else dev(x)
+                              for x in a["tables"]))
+        fn = build(mesh, "map", **kw)
+        native.reset_launch_counts()
+        rv, tv, X, st = fn(dev(a["K"]), dev(a["rv"]), dev(a["tv"]),
+                           dev(a["X"]), tab, dev(a["cam_free"]),
+                           dev(a["lm_free"]))
+        launches = [native.LAUNCHES[k] for k in ("ba_linearize",
+                                                 "schur_apply",
+                                                 "schur_gather")]
+        np.savez(out_dir / f"{name}.{rank}.npz", rv=to_np(rv), tv=to_np(tv),
+                 X=to_np(X), initial_cost=to_np(st.initial_cost),
+                 final_cost=to_np(st.final_cost), lam=to_np(st.lam),
+                 accepted=to_np(st.accepted),
+                 map_rank=mesh.get_local_rank("map"), launches=launches)
+
+
+def torchrun_worker(rank, world, out_dir, port):
+    """Joins a gloo world through torchrun's variables alone (env://) with
+    ``initialize_hosts(device="cpu")``, then all-reduces its rank."""
+    import os
+
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.parallel import initialize_hosts
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    initialize_hosts(device="cpu")
+    try:
+        t = torch.tensor([float(rank + 1)])
+        dist.all_reduce(t)
+        np.savez(out_dir / f"torchrun.{rank}.npz",
+                 world=dist.get_world_size(), rank=dist.get_rank(),
+                 backend=dist.get_backend(), total=float(t))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_worker(rank, world, out_dir, local_world):
+    """``make_scan_map_mesh`` on a gloo world with ``LOCAL_WORLD_SIZE``:
+    the default shape, and the shape asked with n_scan=3; and an
+    all-reduce over each axis of the default mesh."""
+    import os
+
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.parallel import make_scan_map_mesh
+    os.environ["LOCAL_WORLD_SIZE"] = str(local_world)
+    mesh = make_scan_map_mesh(device="cpu")
+    three = make_scan_map_mesh(3, device="cpu")
+    sums = []
+    for axis in ("scan", "map"):
+        t = torch.tensor([float(rank)])
+        dist.all_reduce(t, group=mesh.get_group(axis))
+        sums.append(float(t))
+    np.savez(out_dir / f"mesh.{rank}.npz", shape=tuple(mesh.mesh.shape),
+             three=tuple(three.mesh.shape),
+             names=np.array(mesh.mesh_dim_names),
+             pos=(mesh.get_local_rank("scan"), mesh.get_local_rank("map")),
+             sums=sums)
+
+
+def flat_tree(tree, prefix="") -> dict:
+    """A nested dict of arrays as one dict with dotted keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def fleet_trace(step, states, frames) -> dict:
+    """Step a fleet through frames [T, B, ...]: each frame's metrics and
+    the final state, flattened (``flat_tree``) with keys "m{t}.*" and
+    "state.*"."""
+    from sfm_tpu_torch.engine.state import state_to_numpy
+    out = {}
+    for t, images in enumerate(frames):
+        states, m = step(states, images)
+        out.update({f"m{t}.{k}": to_np(v) for k, v in m.items()})
+    out.update(flat_tree(state_to_numpy(states), "state."))
+    return out
+
+
+def sharded_fleet_worker(rank, world, out_dir, cfg_kw, K, frames):
+    """A fleet of frames.shape[1] scans split over ``world`` ranks on the
+    "scan" axis of a (world, 1) mesh, stepped through ``frames`` by
+    ``build_sharded_step``; writes its block's ``fleet_trace`` and whether
+    a batch that does not split raises."""
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.engine.state import CameraParams, init_batched_state
+    from sfm_tpu_torch.parallel import (build_sharded_step,
+                                        make_scan_map_mesh,
+                                        shard_batched_state)
+    cfg = SfMConfig(**cfg_kw)
+    cam = CameraParams(K=to_t(K), d=torch.zeros(5), Kopt=to_t(K))
+    mesh = make_scan_map_mesh(world, device="cpu")
+    B = frames.shape[1]
+    states = shard_batched_state(init_batched_state(cfg, B, "cpu"), mesh)
+    images = [shard_batched_state(to_t(f), mesh) for f in frames]
+    out = fleet_trace(build_sharded_step(cfg, cam, mesh), states, images)
+    try:
+        shard_batched_state(init_batched_state(cfg, world + 1, "cpu"), mesh)
+        out["odd_batch_raised"] = np.array(False)
+    except ValueError:
+        out["odd_batch_raised"] = np.array(True)
+    np.savez(out_dir / f"fleet.{rank}.npz", **out)
+
+
+def dryrun_worker(rank, world, out_dir):
+    """``entry.dryrun_multichip(world, device="cpu")``; writes its
+    metrics and the two solvers' costs."""
+    from sfm_tpu_torch.entry import dryrun_multichip
+    out = dryrun_multichip(world, device="cpu")
+    np.savez(out_dir / f"dryrun.{rank}.npz",
+             status=to_np(out["metrics"]["status"]),
+             n_detected=to_np(out["metrics"]["n_detected"]),
+             dense=[float(out["dist_ba"][3].initial_cost),
+                    float(out["dist_ba"][3].final_cost)],
+             large=[float(out["dist_large_ba"][3].initial_cost),
+                    float(out["dist_large_ba"][3].final_cost)],
+             rv=to_np(out["dist_large_ba"][0]),
+             engine_status=to_np(out["large_engine"]["status"]))
