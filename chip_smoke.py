@@ -38,7 +38,11 @@
    beside it; the offline checks, the merged links and view counts, K2 /
    K3 / K3-gather launched only from the mapping stream, and the rerun
    equal bit for bit; prints frames/s, the mapping passes' ms and the
-   share of their time hidden behind tracking;
+   share of their time hidden behind tracking; then the scan's first 24
+   frames with tracking on the CPU and the mapping pass on the card
+   (``track_device="cpu"``: S0 copied to the card at each dispatch, M
+   back at each join), with the offline checks and every K2 / K3 /
+   K3-gather launch from the mapping stream;
 8b. "serve": serving.ScanServer on 127.0.0.1 on the card with two clients
    at once (threads), each INIT with FLAGSHIP minus its image size, 40
    uint8 RGB strafe frames (16 by FRAME, 24 by FRAMES in chunks of
@@ -146,6 +150,16 @@
    pipeline's scan likewise.  This comes last
    because a profiler session leaves the host slower for the host-bound
    phases after it (and a long one disturbs the sessions after it);
+13a. "helpers", on the FLAGSHIP scan's final engine: ``match_pairs`` on
+   K1's MatchResult at the tracking shape (512x512) against the plain
+   matcher's pairs, exactly; ``run_ba`` in POSE_ONLY and STRUCT_ONLY on
+   the final map (the cost must not rise, ``total_cost`` must give the
+   solver's costs, the frozen block must come back bit for bit);
+   ``ransac_homography`` on a plane's matches against its CPU run with
+   the same samples; ``remove_keyframe`` of the newest keyframe; one more
+   frame tracked inside ``utils.device_trace``, whose trace must hold a
+   K1 or K5 kernel event (after every profiled measurement: the trace is
+   a profiler session);
 14. prints a JSON line with the phases' numbers, a JSON line with the
    kernels' numbers (the six kernels, with their launches by phase, the
    dist phase's over every rank; then K2 / K3 / K3-gather at the long
@@ -172,6 +186,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1212,11 +1227,13 @@ def k1_by_site(torch, calls, scan="FLAGSHIP"):
 
 
 def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
-              k1_calls=None):
+              k1_calls=None, keep=False):
     """add_frames over the bench.py scan in chunks of keyframe_time_lag
     frames, then the checks; every counter in ``kernels`` must have been
     launched by the scan.  K1's launches are also counted per call site,
-    and its calls recorded into the list ``k1_calls`` when given."""
+    and its calls recorded into the list ``k1_calls`` when given.  With
+    ``keep`` the engine comes back under "keep" (for the helpers
+    phase)."""
     from sfm_tpu_torch import native
     from sfm_tpu_torch.engine import SfMEngine, run_pending_mapping
     from sfm_tpu_torch.engine.state import scalar
@@ -1308,12 +1325,15 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
     failed = [n for n, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{label} checks failed: {failed}")
-    return dict(launches=launches, k1_sites=k1_sites, fps=fps,
-                map_ms=float(np.mean(map_ms)),
-                ate_pct=100 * ate / extent, keyframes=n_kf,
-                running=running, bootstrap_frame=boot,
-                ba_dropped_obs=dropped, digest=digest,
-                statuses="".join(map(str, status.tolist())))
+    out = dict(launches=launches, k1_sites=k1_sites, fps=fps,
+               map_ms=float(np.mean(map_ms)),
+               ate_pct=100 * ate / extent, keyframes=n_kf,
+               running=running, bootstrap_frame=boot,
+               ba_dropped_obs=dropped, digest=digest,
+               statuses="".join(map(str, status.tolist())))
+    if keep:
+        out["keep"] = eng
+    return out
 
 
 def run_live(torch, dev, cfg, kernels, K=K, before=LIVE_BEFORE,
@@ -2568,6 +2588,10 @@ MAPPING_KERNELS = ("ba_linearize", "schur_apply", "schur_gather")
 # the pipeline's frames profiled for the card's busy share: a keyframe at
 # frame 34 (bit for bit the same in every run) starts a mapping pass
 PIPELINE_PROFILED = (34, 46)
+# the pipeline phase's split run (tracking on the CPU, mapping on the card):
+# the scan's first frames, through the keyframe at frame 21, the fourth
+# (the offline gates ask for 4 keyframes)
+SPLIT_FRAMES = 24
 
 
 def state_digest(state):
@@ -2622,7 +2646,8 @@ def links_consistent(state):
 
 
 def run_pipeline(torch, dev, cfg, kernels, K=K, n_frames=N_FRAMES,
-                 merge_lag=PIPELINE_LAG, label="pipeline"):
+                 merge_lag=PIPELINE_LAG, label="pipeline",
+                 split_frames=SPLIT_FRAMES):
     """The offline phase's grey strafe, frame by frame through
     ``AsyncMappingEngine(merge_lag)`` (the mapping pass on the worker
     thread's own CUDA stream), then ``flush``; twice, and once through
@@ -2633,7 +2658,8 @@ def run_pipeline(torch, dev, cfg, kernels, K=K, n_frames=N_FRAMES,
     the second run equal to the first bit for bit.  Logs frames/s beside
     the inline rate, the mapping passes' wall ms and the share of their
     time hidden behind tracking: 1 - (the caller's ms waiting in joins) /
-    (the worker's ms in mapping passes)."""
+    (the worker's ms in mapping passes).  Then the first ``split_frames``
+    frames again with tracking on the CPU (``run_split_pipeline``)."""
     from sfm_tpu_torch import native
     from sfm_tpu_torch.engine import CameraParams, SfMEngine
     from sfm_tpu_torch.parallel.pipeline import AsyncMappingEngine
@@ -2730,7 +2756,11 @@ def run_pipeline(torch, dev, cfg, kernels, K=K, n_frames=N_FRAMES,
         checks["hamming_match launched from the mapping stream"] = \
             on_map["hamming_match"] > 0
     run_checks(label, checks)
+    split = run_split_pipeline(torch, dev, cfg, frames[:split_frames],
+                               rvecs, tvecs, K=K, merge_lag=merge_lag,
+                               label=f"{label} split")
     return dict(
+        split=split,
         launches=first["launches"], launches_mapping_stream=on_map,
         fps=first["fps"], rerun_fps=runs[1]["fps"], inline_fps=inline_fps,
         mapping_passes=t.counts["mapping"],
@@ -2740,6 +2770,71 @@ def run_pipeline(torch, dev, cfg, kernels, K=K, n_frames=N_FRAMES,
         hidden_share=hidden, ate_pct=100 * ate / extent, keyframes=len(fns),
         running=running, digest=first["digest"],
         keep=dict(staged=staged, cam=cam, cfg=cfg, merge_lag=merge_lag))
+
+
+def run_split_pipeline(torch, dev, cfg, frames, rvecs, tvecs, K=K,
+                       merge_lag=PIPELINE_LAG, label="pipeline split"):
+    """``AsyncMappingEngine(track_device="cpu", map_device=dev)`` on the
+    first frames of the pipeline's scan: the tracking state and the
+    frames on the CPU, S0 copied to the card at each dispatch and M back
+    at each join.  Checks the offline gates (on the frames there are),
+    the merged state on the CPU, and K2 / K3 / K3-gather launched, every
+    launch from the mapping stream.  On the CPU (a rehearsal) the mapping
+    device is ``torch.device("cpu", 0)``, which differs from the
+    tracking device's ``torch.device("cpu")``, so the copies run too."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.engine import CameraParams
+    from sfm_tpu_torch.parallel.pipeline import AsyncMappingEngine
+    from sfm_tpu_torch.synthetic import keyframe_ate
+
+    on_card = torch.device(dev).type == "cuda"
+    map_dev = torch.device(dev) if on_card else torch.device("cpu", 0)
+    Kt = torch.as_tensor(K)
+    cam = CameraParams(K=Kt, d=torch.zeros(5), Kopt=Kt)
+    t0 = time.perf_counter()
+    eng = AsyncMappingEngine(cfg, cam, track_device="cpu", map_device=map_dev,
+                             merge_lag=merge_lag, seed=0)
+    native.reset_launch_counts()
+    status = [int(eng.step(f)["status"]) for f in frames]
+    eng.flush()
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches, by_stream = dict(native.LAUNCHES), dict(native.STREAM_LAUNCHES)
+    status = np.array(status)
+    boot = int(np.argmax(status == 1)) if (status == 1).any() else None
+    if boot is None:
+        raise AssertionError(f"{label}: the scan never bootstrapped")
+    running = float((status[boot + 1:] == 1).mean())
+    traj, fns = state_trajectory(eng.state)
+    ate, extent = keyframe_ate(traj, fns, rvecs, tvecs)
+    passes = eng.timer.counts["mapping"]
+    log(f"[{label}] tracking on the CPU, mapping on {map_dev}: "
+        f"{len(frames)} frames in {secs:.3f} s; bootstrap on frame {boot}; "
+        f"{running:.1%} of later frames RUNNING; {len(fns)} keyframes "
+        f"{fns.tolist()}; ATE {ate:.5f} over extent {extent:.3f} "
+        f"({100 * ate / extent:.3f}%); {passes} mapping passes "
+        f"({1e3 * eng.timer.totals['mapping'] / max(passes, 1):.3f} ms each "
+        f"on the worker); launches {launches}")
+    checks = {
+        "post-bootstrap frames RUNNING >= 90%": running >= 0.9,
+        "keyframes >= 4": len(fns) >= 4,
+        "sim(3) keyframe ATE < 2% of extent": ate < 0.02 * extent,
+        "no keyframe or prev link to an invalid landmark":
+            links_consistent(eng.state),
+        "mapping passes merged": eng.timer.counts["merge"] == passes > 0,
+        "the tracked state on the CPU": eng.state.lms.xyz.device.type
+        == eng.state.kfs.frames.desc.device.type == "cpu",
+    }
+    if on_card:
+        ours = eng._stream.cuda_stream
+        for name in MAPPING_KERNELS:
+            checks[f"{name}: launched, every launch from the mapping "
+                   f"stream"] = by_stream.get((name, ours), 0) \
+                == launches[name] > 0
+    run_checks(label, checks)
+    return dict(frames=len(frames), seconds=secs, running=running,
+                keyframes=len(fns), ate_pct=100 * ate / extent,
+                mapping_passes=passes, launches=launches)
 
 
 def pipeline_device(torch, out, window=PIPELINE_PROFILED):
@@ -2930,6 +3025,231 @@ def run_serve(torch, dev, overrides, kernels, K=K, n_frames=SERVE_FRAMES,
 # width (32 keyframes, its ba_landmark_capacity of 2048 landmarks, each
 # seen by 8 keyframes), 12 LM iterations; the sharded fleet (the fleet
 # phase's scans, 8 of them over 2 ranks, 10 frames, FLAGSHIP)
+# the helpers phase: match_pairs' caps (each a share of the matches: one
+# that holds them all, one that they overflow), the BA modes' LM iterations,
+# the homography RANSAC's plane (outliers, hypotheses), and K1's and K5's
+# kernels, which the traced frame's trace must show
+HELPERS_CAPS = (2.0, 0.5)
+HELPERS_BA_ITERATIONS = 10
+HELPERS_OUTLIERS, HELPERS_HYPOTHESES = 0.25, 128
+TRACE_KERNELS = ("cells_kernel", "dense_kernel", "epilogue_kernel",
+                 "patch_kernel")
+
+
+def homography_problem(rng, K=K, n=400, outliers=HELPERS_OUTLIERS):
+    """A plane seen from two poses (an exact homography between the views),
+    a share of the second view's points replaced by outliers, 0.3 px
+    noise: (uv0, uv1, valid, outlier) in numpy."""
+    from sfm_tpu_torch.np_geometry import project_np, rodrigues_np
+    xy = rng.uniform(-2, 2, (n, 2))
+    X = np.stack([xy[:, 0], xy[:, 1], 5.0 + 0.2 * xy[:, 0] - 0.1 * xy[:, 1]],
+                 1)
+    uv0 = project_np(K, np.eye(3), np.zeros(3), X)
+    uv1 = project_np(K, rodrigues_np(np.array([0.02, -0.05, 0.01])),
+                     np.array([0.4, 0.05, -0.03]), X)
+    out = rng.uniform(0, 1, n) < outliers
+    uv1[out] = rng.uniform(0, [2 * K[0, 2], 2 * K[1, 2]], (out.sum(), 2))
+    uv1 = uv1 + rng.normal(0, 0.3, uv1.shape)
+    return (uv0.astype(np.float32), uv1.astype(np.float32),
+            rng.uniform(0, 1, n) < 0.95, out)
+
+
+def trace_kernels(logdir):
+    """The kernel events of every Chrome trace under ``logdir``, by the
+    kernels' short names."""
+    import pathlib
+    names = []
+    for path in pathlib.Path(logdir).glob("*.json"):
+        for e in json.loads(path.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel":
+                names.append(_short(e.get("name", "")))
+    return names
+
+
+def run_helpers(torch, dev, eng, trace_dir, K=K, n_frames=N_FRAMES,
+                label="helpers"):
+    """The public helpers no engine path calls, on the card, around the
+    FLAGSHIP scan's final engine ``eng`` (``n_frames`` frames in):
+
+    - ``match_pairs`` on K1's MatchResult at the tracking shape (512x512),
+      with caps that hold every match and that the matches overflow,
+      against the pairs of the plain matcher's result on the CPU, exactly;
+    - ``run_ba`` in POSE_ONLY and STRUCT_ONLY on the final map (every
+      keyframe and live landmark, the scan's Huber delta): the cost must
+      not rise, ``total_cost`` must give the solver's costs, and the
+      frozen block must come back bit for bit;
+    - ``ransac_homography`` on a plane's matches on the card, against its
+      plain run on the CPU with the card's samples injected (the same
+      inliers, H within 2e-3 normalised) and against the truth;
+    - ``remove_keyframe`` of the newest keyframe on the card's store: that
+      slot alone invalid, every other leaf the same tensor, the
+      landmarks' view counts down by its links, the next insertion in it;
+    - one more strafe frame tracked by ``eng.add_frame`` inside
+      ``device_trace(trace_dir)``: the trace written must hold a K1 or K5
+      kernel event (on the card).
+
+    Every check gates; K1 must have been launched by the phase."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.ba import (BAMode, observations_from_keyframes, run_ba,
+                                  total_cost)
+    from sfm_tpu_torch.features.match import match_pairs
+    from sfm_tpu_torch.features.match_pallas import match_features_pallas
+    from sfm_tpu_torch.mapstore import (insert_keyframe, kf_view_counts,
+                                        remove_keyframe)
+    from sfm_tpu_torch.ransac import ransac_homography, sample_masked
+    from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+    from sfm_tpu_torch.utils import device_trace
+
+    on_card = torch.device(dev).type == "cuda"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    checks = {}
+    native.reset_launch_counts()
+
+    # match_pairs on K1's result
+    args, kw = k1_inputs(torch, np.random.default_rng(21), K1_CASES[0], dev)
+    res = match_features_pallas(*(a[0] for a in args[:6]), **kw)
+    ref = match_features_pallas(*(a[0].to(cpu) for a in args[:6]), **kw)
+    n_match = int(ref.mask.sum())
+    caps = [max(1, int(c * n_match)) for c in HELPERS_CAPS]
+    pairs_equal = all(torch.equal(a.cpu(), b) for a, b in zip(res, ref))
+    for cap in caps:
+        ours, plain = match_pairs(res, cap), match_pairs(ref, cap)
+        pairs_equal &= all(torch.equal(a.cpu(), b)
+                           for a, b in zip(ours, plain))
+        pairs_equal &= int(ours[2].sum()) == min(cap, n_match)
+    checks["match_pairs on K1's result equals the plain matcher's pairs "
+           "exactly"] = pairs_equal
+    log(f"[{label}] match_pairs on K1's {K1_CASES[0][0]} result: "
+        f"{n_match} matches, caps {caps}: "
+        f"{'exact' if pairs_equal else 'DIFFER'}")
+
+    # the BA modes on the final map
+    st, cfg = eng.state, eng.config
+    obs = observations_from_keyframes(st.kfs, st.lms.valid)
+    fr = st.kfs.frames
+    ba_out = {}
+    for mode in (BAMode.POSE_ONLY, BAMode.STRUCT_ONLY):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        rv, tv, xyz, stats = run_ba(
+            eng.cam.Kopt, fr.rvec, fr.tvec, st.lms.xyz, obs,
+            cam_free=st.kfs.valid, lm_free=st.lms.valid, mode=mode,
+            iterations=HELPERS_BA_ITERATIONS, huber_delta=cfg.ba_huber_delta)
+        sync(torch, dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        c0, c1 = float(stats.initial_cost), float(stats.final_cost)
+        tc0 = float(total_cost(eng.cam.Kopt, fr.rvec, fr.tvec, st.lms.xyz,
+                               obs, cfg.ba_huber_delta))
+        tc1 = float(total_cost(eng.cam.Kopt, rv, tv, xyz, obs,
+                               cfg.ba_huber_delta))
+        if mode == BAMode.POSE_ONLY:
+            frozen = torch.equal(xyz, st.lms.xyz)
+            step = (rv - fr.rvec)[st.kfs.valid].norm(dim=-1)
+        else:
+            frozen = torch.equal(rv, fr.rvec) and torch.equal(tv, fr.tvec)
+            step = (xyz - st.lms.xyz)[st.lms.valid].norm(dim=-1)
+        moved = (float(step.median()), float(step.max()))
+        log(f"[{label}] run_ba {mode.name} on the final map "
+            f"({int(st.kfs.valid.sum())} keyframes, "
+            f"{int(st.lms.valid.sum())} landmarks, {int(obs.w.sum())} "
+            f"observations): cost {c0:.6e} -> {c1:.6e} in "
+            f"{int(stats.accepted)} accepted steps, {ms:.3f} ms; the free "
+            f"block moved {moved[0]:.3e} (median), {moved[1]:.3e} (most); "
+            f"the frozen block "
+            f"{'unchanged bit for bit' if frozen else 'CHANGED'}; total_cost "
+            f"{tc0:.6e} -> {tc1:.6e}")
+        checks[f"run_ba {mode.name}: the cost does not rise"] = c1 <= c0
+        checks[f"run_ba {mode.name}: the frozen block unchanged bit for "
+               f"bit"] = frozen
+        checks[f"run_ba {mode.name}: total_cost gives the solver's costs "
+               f"(rel 1e-5)"] = (abs(tc0 - c0) <= 1e-5 * c0
+                                 and abs(tc1 - c1) <= 1e-5 * max(c1, 1e-30))
+        ba_out[mode.name] = dict(initial_cost=c0, final_cost=c1,
+                                 accepted=int(stats.accepted), ms=ms,
+                                 moved_median=moved[0], moved_max=moved[1])
+
+    # ransac_homography
+    uv0, uv1, valid, out = homography_problem(np.random.default_rng(22), K)
+    t = [torch.as_tensor(a, device=dev) for a in (uv0, uv1, valid)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    samples = sample_masked(gen, t[2], HELPERS_HYPOTHESES, 4)
+    hom = ransac_homography(None, *t, samples=samples)
+    hom_cpu = ransac_homography(None, *(a.to(cpu) for a in t),
+                                samples=samples.to(cpu))
+
+    def unit(H):
+        h = H.double().cpu().reshape(-1)
+        h = h / torch.linalg.norm(h)
+        return h * torch.sign(h[torch.argmax(h.abs())])
+    inl = hom.inliers.cpu().numpy()
+    h_gap = float((unit(hom.model) - unit(hom_cpu.model)).abs().max())
+    checks["ransac_homography on the card: the CPU run's inliers, H within "
+           "2e-3 normalised"] = (torch.equal(hom.inliers.cpu(),
+                                             hom_cpu.inliers)
+                                 and h_gap <= 2e-3)
+    true_share = float(inl[~out & valid].mean())
+    checks["ransac_homography: >= 95% of the true inliers, < 5% of the "
+           "outliers"] = true_share >= 0.95 and inl[out].mean() < 0.05
+    log(f"[{label}] ransac_homography on {len(uv0)} matches "
+        f"({HELPERS_OUTLIERS:.0%} outliers, {HELPERS_HYPOTHESES} "
+        f"hypotheses): {int(hom.n_inliers)} inliers, {true_share:.1%} of "
+        f"the true ones; H {h_gap:.2e} from the CPU run's")
+
+    # remove_keyframe
+    kfs = st.kfs
+    slot = int(np.argmax(np.where(kfs.valid.cpu().numpy(),
+                                  fr.frame_no.cpu().numpy(), -1)))
+    kfs2 = remove_keyframe(kfs, slot)
+    want = kfs.valid.clone()
+    want[slot] = False
+    L = st.lms.valid.shape[0]
+    links = fr.landmark[slot][(fr.landmark[slot] >= 0)
+                              & fr.kp_valid[slot]].long()
+    drop = torch.zeros(L, dtype=torch.int32, device=kfs.valid.device)
+    drop.index_add_(0, links, torch.ones_like(links, dtype=torch.int32))
+    same_leaves = all(getattr(kfs2.frames, f) is getattr(fr, f)
+                      for f in ("xy", "desc", "landmark", "rvec", "tvec"))
+    _, again = insert_keyframe(kfs2, eng.state.prev)
+    lowest_free = int(torch.nonzero(~kfs2.valid)[0])
+    checks["remove_keyframe: that slot alone invalid, every other leaf "
+           "unchanged"] = torch.equal(kfs2.valid, want) and same_leaves
+    checks["remove_keyframe: view counts down by its links, the slot on "
+           "the free list"] = (torch.equal(
+               kf_view_counts(kfs, L) - drop, kf_view_counts(kfs2, L))
+               and int(again) == lowest_free <= slot)
+    log(f"[{label}] remove_keyframe of slot {slot} (frame "
+        f"{int(fr.frame_no[slot])}, {len(links)} links) on {dev}; "
+        f"the next insertion takes slot {int(again)}")
+
+    # one tracked frame under device_trace
+    scene = SpriteScene(np.random.default_rng(11), n_sprites=260, spread=2.4)
+    rvecs, tvecs = strafe_trajectory(n_frames + 1, step=0.06,
+                                     yaw_rate=0.001)
+    H, W = cfg.image_size
+    img = torch.as_tensor(scene.render(K, rvecs[n_frames], tvecs[n_frames],
+                                       H, W), device=dev)
+    with device_trace(trace_dir):
+        m = eng.add_frame(img)
+    names = trace_kernels(trace_dir)
+    shown = sorted({n for n in names if n in TRACE_KERNELS})
+    checks["the traced frame RUNNING"] = int(m["status"]) == 1
+    if on_card:
+        checks["the trace holds a K1 or K5 kernel event"] = bool(shown)
+    launches = dict(native.LAUNCHES)
+    checks["hamming_match launched by the phase"] = \
+        launches["hamming_match"] > 0
+    log(f"[{label}] frame {n_frames} tracked under device_trace: "
+        f"{len(names)} kernel events, of K1 and K5 {shown}; launches "
+        f"{launches}; the phase {time.perf_counter() - t_phase:.3f} s")
+    run_checks(label, checks)
+    return dict(matches=n_match, caps=caps, ba=ba_out,
+                homography_inliers=int(hom.n_inliers),
+                removed_slot=slot, trace_kernels=shown, launches=launches,
+                seconds=time.perf_counter() - t_phase)
+
+
 DIST_SIZE = dict(C=5120, L=1 << 20, kmax=8, ranks=4, lm=10, cg=25,
                  dense_c=32, dense_l=2048, dense_obs=8, dense_lm=12,
                  fleet_scans=8, fleet_ranks=2, fleet_frames=10, cfg=None, K=K)
@@ -3629,7 +3949,7 @@ def main(argv):
     from sfm_tpu_torch.config import FLAGSHIP, LONGSCAN, RING, SLICE, SfMConfig
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
-                         MAIN_PATH, k1_calls=k1_calls)
+                         MAIN_PATH, k1_calls=k1_calls, keep=True)
     dense = run_slice(torch, dev, SfMConfig(**SLICE), "dense",
                       ("hamming_match", "patch_sampler"))
     # the dense solver sums in a fixed order: a rerun repeats bit for bit
@@ -3704,6 +4024,10 @@ def main(argv):
     long_dev = longscan_device(torch, long_cfg, longscan)
     fleet["device"] = fleet_device(torch, fleet)
     pipeline["device"] = pipeline_device(torch, pipeline)
+    # the helpers on the FLAGSHIP scan's final engine; its device_trace is
+    # a profiler session, so it comes after every timed one
+    with tempfile.TemporaryDirectory() as trace_dir:
+        helpers = run_helpers(torch, dev, flagship.pop("keep"), trace_dir)
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
@@ -3719,7 +4043,7 @@ def main(argv):
             launches_by_phase=dict(
                 {ph: out["launches"][name] for ph, out in (
                     ("flagship", flagship), ("pipeline", pipeline),
-                    ("serve", serve))},
+                    ("serve", serve), ("helpers", helpers))},
                 dist=dist["launches"].get(name, 0)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -3845,7 +4169,7 @@ def main(argv):
         "live": live, "flow": {k: v for k, v in flow.items()
                                if k != "launches"}, "cli": cli,
         "cg": {k: v for k, v in cg.items() if k != "launches"},
-        "pipeline": pipeline, "serve": serve,
+        "pipeline": pipeline, "serve": serve, "helpers": helpers,
         "dense_rerun_digest_equal": dense_again["digest"] == dense["digest"],
         "longscan": longscan, "ring": ring, "fleet": fleet, "dist": dist,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()

@@ -5,7 +5,7 @@ per-observation PCG solver (``core.py``), and the implicit-Schur PCG solver
 ``schur_pallas.py``)."""
 
 from .residuals import (Observations, residuals_and_jacobians, huber_weights,
-                        apply_pose_update)
-from .core import (BAStats, run_ba, run_ba_cg,
+                        apply_pose_update, total_cost)
+from .core import (BAMode, BAStats, run_ba, run_ba_cg,
                    observations_from_keyframes, compact_landmarks,
                    compact_ba_problem, scatter_back_landmarks)

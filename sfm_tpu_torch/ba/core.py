@@ -7,7 +7,8 @@ elimination of the landmarks: the dense solver (``run_ba``,
 W [C, L, 6, 3], g_cam [C, 6] and g_lm [L, 3] by summing over the COO
 observation list; the landmark blocks are eliminated, the reduced
 [6C, 6C] camera system is solved densely, and the landmarks are
-back-substituted.  ``run_ba_cg`` keeps the coupling per observation,
+back-substituted; ``mode`` (``BAMode``) optimises the poses alone or the
+landmarks alone instead.  ``run_ba_cg`` keeps the coupling per observation,
 W_o [O, 6, 3], and solves the reduced system by block-Jacobi PCG (the
 large solver's ``_pcg``) through gathers and the same sums.  In both, a
 trial step is assembled at the proposed point, which yields its cost
@@ -19,6 +20,7 @@ gives the same iterates bit for bit; on the CPU the sums equal
 
 from __future__ import annotations
 
+import enum
 from typing import NamedTuple, Tuple
 
 import torch
@@ -27,6 +29,13 @@ from ..geometry.rotations import exp_so3
 from ..utils.rowsum import RowSum
 from .residuals import (Observations, apply_pose_update, huber_weights,
                         residuals_and_jacobians, robust_cost)
+
+
+class BAMode(enum.IntEnum):
+    """What ``run_ba`` optimises (the reference's CTracker::BA_TYPE)."""
+    STRUCT_AND_POSE = 0
+    POSE_ONLY = 1      # the landmarks frozen
+    STRUCT_ONLY = 2    # the cameras frozen
 
 
 class BAStats(NamedTuple):
@@ -121,24 +130,41 @@ def _solve_step(U, V, W, g_cam, g_lm, lam):
     return d_cam, d_lm
 
 
+def _pose_step(U, V, W_o, g_cam, g_lm, lam):
+    """``BAMode.POSE_ONLY``: the damped camera blocks solved alone (the
+    landmarks frozen)."""
+    d_cam = torch.linalg.solve_ex(_damp(U, lam), g_cam[:, :, None],
+                                  check_errors=False)[0][..., 0]
+    return d_cam, None
+
+
+def _struct_step(U, V, W_o, g_cam, g_lm, lam):
+    """``BAMode.STRUCT_ONLY``: the damped landmark blocks solved alone
+    (the cameras frozen)."""
+    return None, (_inv(_damp(V, lam)) @ g_lm[:, :, None])[..., 0]
+
+
 def _lm_loop(assemble, step, rvec, tvec, xyz, cam_free_f, lm_free_f, *,
              iterations: int, lam0: float, lam_up: float, lam_down: float,
              tol: float):
     """The LM damping loop shared by ``run_ba`` and ``run_ba_cg``:
     ``assemble(rvec, tvec, xyz)`` -> (blocks, cost), ``step(blocks, lam)``
-    -> (d_cam, d_lm).  Stops early once an accepted step lowers the cost
-    by less than ``tol`` relative (one host read per iteration)."""
+    -> (d_cam, d_lm), where None freezes that block bit for bit.  Stops
+    early once an accepted step lowers the cost by less than ``tol``
+    relative (one host read per iteration)."""
     blocks, cost = assemble(rvec, tvec, xyz)
     cost0 = cost
     lam = torch.tensor(lam0, dtype=torch.float32, device=xyz.device)
     accepted = torch.zeros((), dtype=torch.int32, device=xyz.device)
     for _ in range(iterations):
         d_cam, d_lm = step(blocks, lam)
-        d_cam = d_cam * cam_free_f[:, None]
-        d_lm = d_lm * lm_free_f[:, None]
-        rv_new, tv_new = apply_pose_update(rvec, tvec, d_cam[:, :3],
-                                           d_cam[:, 3:])
-        xyz_new = xyz + d_lm
+        rv_new, tv_new, xyz_new = rvec, tvec, xyz
+        if d_cam is not None:
+            d_cam = d_cam * cam_free_f[:, None]
+            rv_new, tv_new = apply_pose_update(rvec, tvec, d_cam[:, :3],
+                                               d_cam[:, 3:])
+        if d_lm is not None:
+            xyz_new = xyz + d_lm * lm_free_f[:, None]
         blocks_new, new_cost = assemble(rv_new, tv_new, xyz_new)
         ok = (new_cost < cost) & torch.isfinite(new_cost)
         done = ok & (cost - new_cost < tol * torch.clamp(cost, min=1.0))
@@ -157,23 +183,35 @@ def _lm_loop(assemble, step, rvec, tvec, xyz, cam_free_f, lm_free_f, *,
 
 
 def run_ba(K, rvec, tvec, xyz, obs: Observations, *, cam_free, lm_free,
-           iterations: int = 20,
+           mode: BAMode = BAMode.STRUCT_AND_POSE, iterations: int = 20,
            lam0: float = 1e-3, lam_up: float = 4.0, lam_down: float = 2.0,
            huber_delta: float = 0.0, tol: float = 1e-4
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BAStats]:
-    """Dense-Schur LM over structure and poses.  cam_free [C] / lm_free
-    [L] bool masks freeze parameters (gauge, padding).  Stops early once
-    an accepted step lowers the cost by less than ``tol`` relative (one
-    host read per iteration)."""
+    """Dense-Schur LM over structure and poses, or over the poses alone
+    (``BAMode.POSE_ONLY``) or the landmarks alone (``STRUCT_ONLY``), whose
+    frozen block is returned unchanged bit for bit.  cam_free [C] /
+    lm_free [L] bool masks freeze parameters (gauge, padding).  Stops
+    early once an accepted step lowers the cost by less than ``tol``
+    relative (one host read per iteration)."""
     cam_free_f = cam_free.to(torch.float32)
     lm_free_f = lm_free.to(torch.float32)
     C, L = rvec.shape[0], xyz.shape[0]
     sums = _Sums.of(obs, C, L)
-    pair_sum = RowSum(obs.cam_idx * L + obs.lm_idx, C * L)
+    if mode == BAMode.STRUCT_AND_POSE:
+        pair_sum = RowSum(obs.cam_idx * L + obs.lm_idx, C * L)
+
+        def assemble(rv, tv, X):
+            return _assemble(K, rv, tv, X, obs, cam_free_f, lm_free_f,
+                             huber_delta, sums, pair_sum)
+        solve = _solve_step
+    else:
+        # one pose or one landmark at a time: no [C, L] coupling
+        def assemble(rv, tv, X):
+            return _assemble_cg(K, rv, tv, X, obs, cam_free_f, lm_free_f,
+                                huber_delta, sums)
+        solve = _pose_step if mode == BAMode.POSE_ONLY else _struct_step
     return _lm_loop(
-        lambda rv, tv, X: _assemble(K, rv, tv, X, obs, cam_free_f,
-                                    lm_free_f, huber_delta, sums, pair_sum),
-        lambda blocks, lam: _solve_step(*blocks, lam),
+        assemble, lambda blocks, lam: solve(*blocks, lam),
         rvec, tvec, xyz, cam_free_f, lm_free_f, iterations=iterations,
         lam0=lam0, lam_up=lam_up, lam_down=lam_down, tol=tol)
 

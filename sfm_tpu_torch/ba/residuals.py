@@ -73,6 +73,15 @@ def robust_cost(r, w, huber_delta: float):
     return torch.sum(sq * w)
 
 
+def total_cost(K, rvec, tvec, xyz, obs: Observations,
+               huber_delta: float = 0.0) -> torch.Tensor:
+    """Sum of (Huber-)robustified squared reprojection residuals of the
+    poses (rvec [C, 3], tvec [C, 3]) and landmarks xyz [L, 3], weighted by
+    obs.w."""
+    r, _, _ = residuals_and_jacobians(K, exp_so3(rvec), tvec, xyz, obs)
+    return robust_cost(r, obs.w, huber_delta)
+
+
 def apply_pose_update(rvec, tvec, dw, dt):
     """R <- exp(dw) R, t <- t + dt (batched over leading dims)."""
     return log_so3(exp_so3(dw) @ exp_so3(rvec)), tvec + dt

@@ -24,3 +24,18 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     words = torch.sum(b.to(torch.int64) << shifts, dim=-1)
     # reinterpret the unsigned 32-bit word as int32 (two's complement)
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise Hamming distances [N, M] (float32, exact) between packed
+    descriptors desc_a [N, W] and desc_b [M, W]: |a| + |b| - 2 a.b on the
+    unpacked bits, one matmul."""
+    a = unpack_bits(desc_a)
+    b = unpack_bits(desc_b)
+    return a.sum(-1)[:, None] + b.sum(-1)[None, :] - 2.0 * (a @ b.T)
+
+
+def hamming_pairwise(desc_a: torch.Tensor, desc_b: torch.Tensor
+                     ) -> torch.Tensor:
+    """Hamming distance between aligned rows [..., W] -> [...] float32."""
+    return unpack_bits(desc_a ^ desc_b).sum(-1)

@@ -129,6 +129,28 @@ def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(corner, score, zero)
 
 
+def shi_tomasi_score(img: torch.Tensor, sigma_window: int = 3
+                     ) -> torch.Tensor:
+    """Dense minimum-eigenvalue corner response of img [H, W] (the
+    goodFeaturesToTrack analogue): central differences with wrap-around
+    at the border, structure tensor summed over a ``sigma_window`` box
+    with zero padding."""
+    dx = 0.5 * (torch.roll(img, -1, 1) - torch.roll(img, 1, 1))
+    dy = 0.5 * (torch.roll(img, -1, 0) - torch.roll(img, 1, 0))
+    k = sigma_window
+    lo, hi = (k - 1) // 2, k // 2
+    w = torch.full((1, 1, k, k), 1.0 / (k * k), dtype=img.dtype,
+                   device=img.device)
+
+    def box(x):
+        return F.conv2d(F.pad(x[None, None], (lo, hi, lo, hi)), w)[0, 0]
+
+    a, b, c = box(dx * dx), box(dx * dy), box(dy * dy)
+    tr = a + c
+    det = a * c - b * b
+    return tr / 2.0 - torch.sqrt(torch.clamp(tr * tr / 4.0 - det, min=0.0))
+
+
 def nms(score: torch.Tensor, radius: int) -> torch.Tensor:
     """Suppress non-maxima of [..., H, W] within a (2r+1)^2 window (ties
     keep all)."""

@@ -35,6 +35,11 @@ def project(K, rvec, tvec, xyz) -> torch.Tensor:
     return apply_intrinsics(K, to_camera(rvec, tvec, xyz))
 
 
+def project_cam(K, cam) -> torch.Tensor:
+    """Project camera-frame points [..., N, 3] -> pixels [..., N, 2]."""
+    return apply_intrinsics(K, cam)
+
+
 def depths(rvec, tvec, xyz) -> torch.Tensor:
     """Camera-frame depth (z) of world points [..., N]."""
     R = exp_so3(rvec)
@@ -46,6 +51,18 @@ def pixel_to_norm(K, uv):
     y = (uv[..., 1] - cy) / fy
     x = (uv[..., 0] - cx - skew * y) / fx
     return torch.stack([x, y], dim=-1)
+
+
+def distort_norm(d, xy):
+    """Apply the radial-tangential distortion d = (k1, k2, p1, p2, k3) to
+    normalised coordinates [..., 2]."""
+    k1, k2, p1, p2, k3 = d[0], d[1], d[2], d[3], d[4]
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xt = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yt = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xt, yt], dim=-1)
 
 
 def undistort_norm(d, xy_dist, iters: int = 8):
@@ -69,6 +86,15 @@ def undistort_pixels(K, d, Kopt, uv):
     norm = undistort_norm(d, pixel_to_norm(K, uv))
     cam = torch.cat([norm, torch.ones_like(norm[..., :1])], dim=-1)
     return apply_intrinsics(Kopt, cam)
+
+
+def distort_pixels(K, d, Kopt, uv_undist):
+    """Undistorted pixels under Kopt -> distorted pixels under (K, d): the
+    inverse of ``undistort_pixels`` (for drawing and flow on raw
+    images)."""
+    dist = distort_norm(d, pixel_to_norm(Kopt, uv_undist))
+    cam = torch.cat([dist, torch.ones_like(dist[..., :1])], dim=-1)
+    return apply_intrinsics(K, cam)
 
 
 def optimal_new_camera_matrix(K, d, image_size, alpha: float = 0.0):

@@ -1,4 +1,5 @@
-"""SO(3) utilities: Rodrigues exp/log maps and the nearest rotation.
+"""SO(3) utilities: Rodrigues exp/log maps, quaternions, point rotation
+and the nearest rotation.
 
 Every function broadcasts over leading dimensions."""
 
@@ -65,6 +66,26 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
                            (trace - 1.0) * 0.5)
     near_pi = axis * theta_pi[..., None]
     return torch.where(theta[..., None] > 3.1066, near_pi, rvec)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) [..., 4] -> rotation matrix
+    [..., 3, 3]."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+def rotate_points(rvec: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Rotate points [..., N, 3] by angle-axis rvec [..., 3] (the
+    reference's ceres::AngleAxisRotatePoint)."""
+    return pts @ exp_so3(rvec).transpose(-1, -2)
 
 
 def nearest_rotation(M: torch.Tensor) -> torch.Tensor:

@@ -337,6 +337,18 @@ def insert_keyframe(kfs: KeyframeStore, frame: Frame, want=None
     return KeyframeStore(frames=frames, valid=valid), slot
 
 
+def remove_keyframe(kfs: KeyframeStore, slot) -> KeyframeStore:
+    """Drop the keyframe in ``slot`` (an int or a [] tensor; outside [0, K)
+    nothing changes).  Observations derive from the link matrix, so
+    invalidating the slot removes its observations everywhere at once;
+    the landmarks' descriptor votes keep its contribution, as in the JAX
+    package (a deliberate approximation)."""
+    K = kfs.valid.shape[-1]
+    dev = kfs.valid.device
+    hit = torch.arange(K, device=dev) == torch.as_tensor(slot, device=dev)
+    return kfs.replace(valid=kfs.valid & ~hit)
+
+
 def cull_keyframes(kfs: KeyframeStore, n_landmarks: int, *,
                    redundancy: float = 0.9, min_others: int = 3,
                    keep_first: int = 2

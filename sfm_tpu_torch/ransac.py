@@ -13,8 +13,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .geometry.epipolar import epiline_distance_sq
-from .geometry.estimation import estimate_fundamental
+from .geometry.epipolar import (epiline_distance_sq,
+                                homography_transfer_error_sq)
+from .geometry.estimation import estimate_fundamental, estimate_homography
 from .geometry.pnp import p3p, pnp_dlt, refine_pose, reprojection_errors
 
 
@@ -79,6 +80,26 @@ def ransac_fundamental(generator, uv0, uv1, valid, *,
     inl = inliers(F)
     n = inl.sum()
     return RansacModel(F, inl, n, n.to(torch.float32))
+
+
+def ransac_homography(generator, uv0, uv1, valid, *,
+                      n_hypotheses: int = 128, threshold: float = 5.99,
+                      samples=None) -> RansacModel:
+    """4-point RANSAC for H (cv::findHomography(RANSAC)): an inlier's
+    squared transfer error is below ``threshold`` both ways."""
+    if samples is None:
+        samples = sample_masked(generator, valid, n_hypotheses, 4)
+    Hs = estimate_homography(uv0, uv1, _sample_weights(samples, valid))
+
+    def inliers(H):
+        e_fwd, e_bwd = homography_transfer_error_sq(H, uv0, uv1)
+        return (e_fwd < threshold) & (e_bwd < threshold) & valid
+
+    H0 = Hs[torch.argmax(inliers(Hs).sum(-1))]
+    H = estimate_homography(uv0, uv1, inliers(H0).to(torch.float32))
+    inl = inliers(H)
+    n = inl.sum()
+    return RansacModel(H, inl, n, n.to(torch.float32))
 
 
 class PnPResult(NamedTuple):

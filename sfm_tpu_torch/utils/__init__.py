@@ -1,3 +1,4 @@
-"""Utilities: host-side phase timing."""
+"""Utilities: host-side phase timing, device traces and scan metrics."""
 
-from .profiling import PhaseTimer
+from .profiling import (PhaseTimer, device_trace, summarize_metrics,
+                        write_metrics_jsonl)

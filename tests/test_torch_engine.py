@@ -341,6 +341,29 @@ def test_imports_without_jax():
             "partition_tables, build_dist_large_ba, build_sharded_step, "
             "shard_batched_state)\n"
             "from sfm_tpu_torch.ba import run_ba_cg\n"
+            "import sfm_tpu_torch.utils.profiling, sfm_tpu_torch.ransac\n"
+            "import sfm_tpu_torch.geometry.rotations\n"
+            "import sfm_tpu_torch.geometry.camera\n"
+            "import sfm_tpu_torch.geometry.triangulate\n"
+            "import sfm_tpu_torch.features.bits\n"
+            "import sfm_tpu_torch.features.detect\n"
+            "import sfm_tpu_torch.features.match, sfm_tpu_torch.mapstore\n"
+            "import sfm_tpu_torch.ba.residuals, sfm_tpu_torch.ba.core\n"
+            "from sfm_tpu_torch.ba import BAMode, total_cost\n"
+            "from sfm_tpu_torch.geometry.rotations import (quat_to_matrix, "
+            "rotate_points)\n"
+            "from sfm_tpu_torch.geometry.camera import (project_cam, "
+            "distort_norm, distort_pixels)\n"
+            "from sfm_tpu_torch.geometry.triangulate import ("
+            "triangulate_nviews, triangulate_pair_h)\n"
+            "from sfm_tpu_torch.features.bits import (hamming_matrix, "
+            "hamming_pairwise)\n"
+            "from sfm_tpu_torch.features.detect import shi_tomasi_score\n"
+            "from sfm_tpu_torch.features.match import match_pairs\n"
+            "from sfm_tpu_torch.mapstore import remove_keyframe\n"
+            "from sfm_tpu_torch.ransac import ransac_homography\n"
+            "from sfm_tpu_torch.utils import (device_trace, "
+            "summarize_metrics, write_metrics_jsonl)\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"
             "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

@@ -135,3 +135,22 @@ def test_descriptor_bit_flip_rate(frame, jax_detect):
     b = np.unpackbits(ref[valid].view(np.uint32).view(np.uint8), axis=-1)
     rate = float((a != b).mean())
     assert rate < FLIP_BOUND, rate
+
+
+@pytest.mark.parametrize("window", [3, 4])
+def test_shi_tomasi_score(window):
+    """rtol 1e-4 against the JAX package, on a texture and a SpriteScene
+    frame; an even window pads as XLA's "SAME" does (one more row below).
+    The response is a difference of two terms, so entries near zero get
+    an absolute tolerance of 1e-4 of the largest response."""
+    rng = np.random.default_rng(10)
+    scene = SpriteScene(np.random.default_rng(3))
+    rv, tv = strafe_trajectory(2)
+    K = np.array([[250., 0, 160], [0, 250., 120], [0, 0, 1]], np.float32)
+    for img in (texture(rng, 60, 80),
+                scene.render(K, rv[1], tv[1], 120, 160).astype(np.float32)):
+        ours = to_np(detect.shi_tomasi_score(to_t(img), window))
+        ref = np.asarray(jdet.shi_tomasi_score(jnp.asarray(img), window))
+        np.testing.assert_allclose(ours, ref, rtol=1e-4,
+                                   atol=1e-4 * np.abs(ref).max())
+        assert ref.max() > 10.0

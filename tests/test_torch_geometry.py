@@ -2,6 +2,7 @@
 seeded inputs (float32; rtol 1e-4 unless a test states another bound and
 its reason)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from sfm_tpu.geometry import triangulate as jtri
 from sfm_tpu.geometry import twoview as jtwo
 from sfm_tpu_torch.geometry import camera, epipolar, estimation, pnp
 from sfm_tpu_torch.geometry import rotations, triangulate, twoview
+from sfm_tpu_torch.np_geometry import project_np, rodrigues_np
 
 RTOL = 1e-4
 
@@ -260,3 +262,87 @@ def test_pnp(scene):
     assert rvb.shape == (2, 3)
     close(rvb[1], scene["rvec1"], atol=1e-3)
     assert torch.isfinite(rvb).all()
+
+
+def test_quat_to_matrix_and_rotate_points():
+    """rtol 1e-5 against the JAX package (atol 1e-6 for entries near 0)."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(0, 1, (64, 4))
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    R = rotations.quat_to_matrix(to_t(q))
+    close(R, jrot.quat_to_matrix(jnp.asarray(q)), rtol=1e-5, atol=1e-6)
+    # a rotation: orthonormal with determinant 1
+    np.testing.assert_allclose(to_np(R @ R.transpose(-1, -2)),
+                               np.broadcast_to(np.eye(3), (64, 3, 3)),
+                               atol=1e-5)
+    np.testing.assert_allclose(to_np(torch.linalg.det(R)), 1.0, atol=1e-5)
+    pts = rng.normal(0, 2, (3, 40, 3)).astype(np.float32)
+    rv = rng.uniform(-2, 2, (3, 3)).astype(np.float32)
+    for r, p in ((rv[0], pts[0]), (rv, pts)):      # one pose; a batch
+        close(rotations.rotate_points(to_t(r), to_t(p)),
+              jrot.rotate_points(jnp.asarray(r), jnp.asarray(p)),
+              rtol=1e-5, atol=1e-6)
+
+
+def test_project_cam_and_distort_pixels(scene):
+    """rtol 1e-5 against the JAX package; distort_pixels with a nonzero
+    model, round-tripped through the port's undistortion."""
+    K = TEST_K
+    R = rodrigues_np(scene["rvec1"])
+    cam_pts = (scene["X"] @ R.T + scene["t1"]).astype(np.float32)
+    close(camera.project_cam(to_t(K), to_t(cam_pts)),
+          jcam.project_cam(jnp.asarray(K), jnp.asarray(cam_pts)),
+          rtol=1e-5, atol=1e-6)
+    d = np.array([-0.25, 0.07, 0.001, -0.0005, 0.002], np.float32)
+    Kopt = jcam.optimal_new_camera_matrix(K, d, (240, 320))
+    uv = scene["uv0"]
+    ours = camera.distort_pixels(to_t(K), to_t(d), to_t(Kopt), to_t(uv))
+    close(ours, jcam.distort_pixels(jnp.asarray(K), jnp.asarray(d),
+                                    jnp.asarray(Kopt), jnp.asarray(uv)),
+          rtol=1e-5, atol=1e-6)
+    assert np.abs(to_np(ours) - uv).max() > 1.0     # the model does work
+    back = camera.undistort_pixels(to_t(K), to_t(d), to_t(Kopt), ours)
+    np.testing.assert_allclose(to_np(back), uv, atol=1e-2)
+    xy = np.random.default_rng(6).uniform(-0.5, 0.5, (50, 2)).astype(
+        np.float32)
+    close(camera.distort_norm(to_t(d), to_t(xy)),
+          jcam.distort_norm(jnp.asarray(d), jnp.asarray(xy)),
+          rtol=1e-5, atol=1e-6)
+
+
+def test_triangulate_nviews_and_homogeneous_pair():
+    """atol 1e-3 against the JAX package (f32 eigensolvers of A^T A)."""
+    rng = np.random.default_rng(7)
+    V, N = 5, 24
+    X = np.stack([rng.uniform(-1.5, 1.5, N), rng.uniform(-1, 1, N),
+                  rng.uniform(4, 8, N)], 1)
+    rv = np.concatenate([np.zeros((1, 3)),
+                         rng.uniform(-0.05, 0.05, (V - 1, 3))])
+    tv = np.concatenate([np.zeros((1, 3)),
+                         np.stack([np.linspace(0.2, 0.8, V - 1),
+                                   rng.uniform(-.05, .05, V - 1),
+                                   rng.uniform(-.05, .05, V - 1)], 1)])
+    Ps = np.stack([TEST_K @ np.concatenate(
+        [rodrigues_np(rv[v]), tv[v][:, None]], 1) for v in range(V)]
+    ).astype(np.float32)
+    uvs = np.stack([project_np(TEST_K, rodrigues_np(rv[v]), tv[v], X)
+                    for v in range(V)], 1)                    # [N, V, 2]
+    uvs = (uvs + rng.normal(0, 0.1, uvs.shape)).astype(np.float32)
+    mask = rng.uniform(0, 1, (N, V)) < 0.8
+    mask[:, :2] = True
+    j_nv = jax.vmap(jtri.triangulate_nviews, (None, 0, 0))
+    ours = triangulate.triangulate_nviews(to_t(Ps), to_t(uvs), to_t(mask))
+    close(ours, j_nv(jnp.asarray(Ps), jnp.asarray(uvs), jnp.asarray(mask)),
+          rtol=0, atol=1e-3)
+    close(ours, X, rtol=0, atol=0.1)
+    # one point, no batch axis
+    close(triangulate.triangulate_nviews(to_t(Ps), to_t(uvs[0]),
+                                         to_t(mask[0])),
+          jtri.triangulate_nviews(jnp.asarray(Ps), jnp.asarray(uvs[0]),
+                                  jnp.asarray(mask[0])), rtol=0, atol=1e-3)
+    pair = triangulate.triangulate_pair_h(to_t(Ps[0]), to_t(Ps[-1]),
+                                          to_t(uvs[:, 0]), to_t(uvs[:, -1]))
+    close(pair, jtri.triangulate_pair_h(
+        jnp.asarray(Ps[0]), jnp.asarray(Ps[-1]), jnp.asarray(uvs[:, 0]),
+        jnp.asarray(uvs[:, -1])), rtol=0, atol=1e-3)
+    close(pair, X, rtol=0, atol=0.1)

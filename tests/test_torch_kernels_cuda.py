@@ -783,6 +783,116 @@ def test_pipeline_maps_on_its_own_stream(cuda):
     assert all(equal)
 
 
+def test_pipeline_tracks_on_the_cpu_and_maps_on_the_card(cuda):
+    """AsyncMappingEngine(track_device="cpu", map_device=the card): S0
+    copied to the card at each dispatch, M back at each join.  Every K2 /
+    K3 / K3-gather launch comes from the mapping stream, and the scan
+    equals the CPU-only pipeline's within tests/test_torch_pipeline.py's
+    limits: the same statuses, keyframes within 1 (the engine parity's),
+    ATE under 10% of the extent, and the shared keyframes' centres within
+    2% of the extent of the CPU run's (the card's BA sums in another
+    order)."""
+    from torch_port_util import TEST_CFG_KW
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.engine import CameraParams
+    from sfm_tpu_torch.parallel.pipeline import AsyncMappingEngine
+    from sfm_tpu_torch.synthetic import (SpriteScene, centres_of,
+                                         strafe_trajectory, umeyama_ate)
+    cfg = SfMConfig(**dict(TEST_CFG_KW, ba_solver="large", ba_kmax=8,
+                           ba_cg_iterations=12, ba_huber_delta=2.0))
+    K = to_t(TEST_K)
+    cam = CameraParams(K=K, d=torch.zeros(5), Kopt=K)
+    scene = SpriteScene(np.random.default_rng(3))
+    rv, tv = strafe_trajectory(30)
+    frames = [scene.render(TEST_K, rv[i], tv[i], 240, 320)
+              for i in range(30)]
+    runs = {}
+    for name, kw in (("split", dict(track_device="cpu", map_device=cuda)),
+                     ("cpu", dict(device="cpu"))):
+        eng = AsyncMappingEngine(cfg, cam, merge_lag=2, **kw)
+        native.reset_launch_counts()
+        status = [int(eng.step(f)["status"]) for f in frames]
+        eng.flush()
+        torch.cuda.synchronize()
+        runs[name] = (eng, status, dict(native.STREAM_LAUNCHES))
+    eng, status, by_stream = runs["split"]
+    assert eng.state.lms.xyz.device.type == "cpu"
+    ours = eng._stream.cuda_stream
+    for k in ("ba_linearize", "schur_apply", "schur_gather"):
+        assert by_stream.get((k, ours), 0) > 0, k
+        assert sum(n for (name, _), n in by_stream.items() if name == k) \
+            == by_stream[(k, ours)], k
+    assert by_stream.get(("hamming_match", ours), 0) > 0
+    assert not runs["cpu"][2]                 # nothing launched on the card
+    ref, ref_status, _ = runs["cpu"]
+    assert status == ref_status and status[-1] == 1
+    out = {}
+    for name, e in (("split", eng), ("cpu", ref)):
+        kfs = e.state.kfs
+        valid = kfs.valid.numpy()
+        fns = kfs.frames.frame_no.numpy()[valid]
+        order = np.argsort(fns)
+        est = centres_of(kfs.frames.rvec.numpy()[valid][order],
+                         kfs.frames.tvec.numpy()[valid][order])
+        out[name] = (fns[order], est)
+    (fa, ca), (fb, cb) = out["split"], out["cpu"]
+    assert abs(len(fa) - len(fb)) <= 1 and len(fb) >= 3
+    gt = centres_of(rv[fb], tv[fb])
+    extent = np.linalg.norm(gt[-1] - gt[0])
+    for f, c in out.values():
+        assert umeyama_ate(c, centres_of(rv[f], tv[f])) < 0.10 * extent
+    both = np.intersect1d(fa, fb)
+    assert len(both) >= 3
+    gap = ca[np.isin(fa, both)] - cb[np.isin(fb, both)]
+    assert np.abs(gap).max() < 0.02 * extent
+
+
+@pytest.mark.parametrize("mode", ["POSE_ONLY", "STRUCT_ONLY"])
+def test_run_ba_modes_on_the_card(cuda, mode):
+    """run_ba(mode=...) on the card: the frozen block bit for bit, the
+    cost not rising, and the CPU run's costs within rel 1e-4."""
+    from sfm_tpu_torch.ba import BAMode, run_ba
+    rng = np.random.default_rng(12)
+    _, init, obs = ba_scene(rng, 8, 300, 5, noise_px=0.5, outlier_p=0.03,
+                            dead_p=0.1, min_obs=2)
+    out = {}
+    for dev in ("cpu", cuda):
+        o = Observations(*(to_t(a).to(dev) for a in obs))
+        o = o._replace(cam_idx=o.cam_idx.long(), lm_idx=o.lm_idx.long())
+        args = [to_t(init[k]).to(dev) for k in ("rv", "tv", "X")]
+        got = run_ba(to_t(TEST_K).to(dev), *args, o,
+                     cam_free=torch.ones(8, dtype=torch.bool, device=dev),
+                     lm_free=torch.ones(300, dtype=torch.bool, device=dev),
+                     mode=BAMode[mode], iterations=10, huber_delta=2.0)
+        frozen = got[2:3] if mode == "POSE_ONLY" else got[:2]
+        init_frozen = args[2:3] if mode == "POSE_ONLY" else args[:2]
+        assert all(torch.equal(a, b) for a, b in zip(frozen, init_frozen))
+        out[str(dev)] = got[3]
+    a, b = out["cuda"], out["cpu"]
+    assert float(a.final_cost) < float(a.initial_cost)
+    for k in ("initial_cost", "final_cost"):
+        np.testing.assert_allclose(float(getattr(a, k)),
+                                   float(getattr(b, k)), rtol=1e-4)
+
+
+def test_match_pairs_on_k1s_result(cuda):
+    """match_pairs on the kernel's MatchResult at the tracking shape equals
+    the pairs of the plain version's, exactly, at caps that hold every
+    match and that the matches overflow."""
+    from sfm_tpu_torch.features.match import match_pairs
+    args = _k1_args(cuda, *K1_SHAPES["tracking"])
+    kw = dict(min_radius=1.5, max_radius=40.0, max_distance=90.0, ratio=0.8)
+    n0 = native.LAUNCHES["hamming_match"]
+    res = mp.match_features_pallas(*(a[0] for a in args[:6]), **kw)
+    assert native.LAUNCHES["hamming_match"] == n0 + 1
+    ref = mp.match_features_pallas(*(a[0].cpu() for a in args[:6]), **kw)
+    n = int(ref.mask.sum())
+    assert n > 20
+    for cap in (2 * n, n // 2):
+        for a, b in zip(match_pairs(res, cap), match_pairs(ref, cap)):
+            assert torch.equal(a.cpu(), b)
+
+
 def _dist_problem(seed=11, C=8, L=160, kmax=5):
     rng = np.random.default_rng(seed)
     _, init, obs = ba_scene(rng, C, L, kmax, noise_px=0.5, dead_p=0.05,

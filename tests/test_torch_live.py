@@ -7,9 +7,11 @@ scan with K1's calls recorded by call site (the inputs of the replay),
 LOST, relocalization, tracking again; every check of the phase), "flow"
 timing, "cli" (scan with metrics, checkpoint and video, a resumed
 scan, the PLY files read back), "pipeline" (the pipelined engine twice
-and inline) and "serve" (two clients at once against in-process
-engines).  On the CPU the matcher runs its plain
-version, so a wrapper counts its calls where the kernel counts launches."""
+and inline, then tracking and mapping on two devices), "serve" (two
+clients at once against in-process engines) and "helpers" (the public
+helpers no engine path calls, on the offline scan's final engine).  On
+the CPU the matcher runs its plain version, so a wrapper counts its
+calls where the kernel counts launches."""
 
 import importlib.util
 import os
@@ -116,6 +118,28 @@ def test_pipeline_phase(smoke, counted_k1):
     assert out["mapping_passes"] >= 2 and out["keyframes"] >= 4
     assert out["launches"]["hamming_match"] > 0
     assert out["inline_fps"] > 0 and 0 <= out["hidden_share"] <= 1
+    # the split run: tracking on the CPU, the mapping device another
+    # torch.device (the card on the card), its first 24 frames
+    split = out["split"]
+    assert split["frames"] == 24 and split["keyframes"] >= 4
+    assert split["mapping_passes"] >= 2 and split["running"] >= 0.9
+
+
+def test_helpers_phase(smoke, counted_k1, tmp_path):
+    """The helpers phase on a TEST-size offline scan's final engine."""
+    cfg = SfMConfig(**TEST_CFG_KW)
+    out = smoke.run_slice(torch, "cpu", cfg, "offline", ("hamming_match",),
+                          K=TEST_K, n_frames=24, keep=True)
+    eng = out.pop("keep")
+    got = smoke.run_helpers(torch, "cpu", eng, str(tmp_path / "trace"),
+                            K=TEST_K, n_frames=24)
+    assert got["matches"] > 20 and got["caps"][1] < got["matches"]
+    assert got["launches"]["hamming_match"] > 0
+    for mode in ("POSE_ONLY", "STRUCT_ONLY"):
+        assert got["ba"][mode]["final_cost"] <= got["ba"][mode][
+            "initial_cost"]
+    assert got["homography_inliers"] > 250
+    assert len(list((tmp_path / "trace").glob("*.json"))) == 1
 
 
 def test_serve_phase(smoke, counted_k1):

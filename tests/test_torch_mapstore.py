@@ -143,3 +143,33 @@ def test_insert_keyframe(stores):
     kt3, st = ms.insert_keyframe(full_t, ft)
     assert int(st) == int(sj) == -1
     _eq(kt3, kj3)
+
+
+@pytest.mark.parametrize("slot", [3, 0, 2, -1, KF],
+                         ids=["live", "first", "already-free", "negative",
+                              "past-the-end"])
+def test_remove_keyframe(stores, slot):
+    """Every leaf of the store exactly as JAX leaves it, and what follows
+    from the store: the observations, the landmarks' view counts and the
+    slot the next insertion takes (the free list)."""
+    from sfm_tpu.ba import core as jcore
+    from sfm_tpu_torch.ba import core
+    rng, lj, lt, kj, kt = stores
+    for s in (slot, to_t(np.int32(slot))):          # an int and a [] tensor
+        kt2 = ms.remove_keyframe(kt, s)
+        kj2 = jms.remove_keyframe(kj, jnp.asarray(slot, jnp.int32))
+        _eq(kt2, kj2)
+    expect = to_np(kt.valid).copy()
+    if 0 <= slot < KF:
+        expect[slot] = False
+    np.testing.assert_array_equal(to_np(kt2.valid), expect)
+    _eq(ms.kf_view_counts(kt2, L), jms.kf_view_counts(kj2, L))
+    for a, b in zip(core.observations_from_keyframes(kt2, lt.valid),
+                    jcore.observations_from_keyframes(kj2, lj.valid)):
+        _eq(a, b)
+    one = {k: v[0] for k, v in _frames(rng, 1).items()}
+    fj, ft = _both(jms.Frame, ms.Frame, one)
+    kj3, sj = jms.insert_keyframe(kj2, fj)
+    kt3, st = ms.insert_keyframe(kt2, ft)
+    assert int(st) == int(sj)
+    _eq(kt3, kj3)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import match_case, to_np, to_t
+from torch_port_util import match_case, noisy_copies, rand_desc, to_np, to_t
 
 from sfm_tpu.features.match import match_features as jax_match
 from sfm_tpu.features.match_pallas import match_features_pallas as jax_pallas
@@ -261,3 +261,63 @@ def test_route_rule_on_the_engine_calls():
     assert mp.k1_route(float("inf"), 16, 2048, 512) == "dense_int"
     assert mp._route_mode("dense_int", 1, 8192, f(1e9 * 1e9)) == 0
     assert mp._route_mode("dense_int", 9, 512, f(120.0 ** 2)) == 1
+
+
+def test_hamming_matrix_and_pairwise_are_exact():
+    from sfm_tpu.features import bits as jbits
+    from sfm_tpu_torch.features import bits
+    rng = np.random.default_rng(8)
+    a, b = rand_desc(rng, 70), rand_desc(rng, 45)
+    b[:10] = noisy_copies(rng, a, np.arange(10))
+    b[10] = a[11]                                    # distance 0
+    b[11] = ~a[12]                                   # distance 512
+    D = bits.hamming_matrix(to_t(a), to_t(b))
+    assert D.dtype == torch.float32 and D.shape == (70, 45)
+    np.testing.assert_array_equal(
+        to_np(D), np.asarray(jbits.hamming_matrix(jnp.asarray(a),
+                                                  jnp.asarray(b))))
+    assert float(D[11, 10]) == 0.0 and float(D[12, 11]) == 512.0
+    pw = bits.hamming_pairwise(to_t(a[:45]), to_t(b))
+    assert pw.dtype == torch.float32
+    np.testing.assert_array_equal(
+        to_np(pw), np.asarray(jbits.hamming_pairwise(jnp.asarray(a[:45]),
+                                                     jnp.asarray(b))))
+    np.testing.assert_array_equal(to_np(pw), np.diagonal(to_np(D)))
+
+
+def _jax_pairs(res, cap):
+    from sfm_tpu.features import match as jmatch
+    return jmatch.match_pairs(jmatch.MatchResult(
+        *[jnp.asarray(to_np(t)) for t in res]), cap)
+
+
+@pytest.mark.parametrize("cap", [512, 40, 7], ids=["room", "overflow",
+                                                    "tight"])
+def test_match_pairs_is_exact(cap):
+    """match_pairs on one MatchResult fed to both packages, with caps that
+    hold every match and that the matches overflow; the MatchResult comes
+    from the port's own matcher (K1's plain version here, the kernel on the
+    card in chip_smoke.py)."""
+    from sfm_tpu_torch.features.match import MatchResult, match_pairs
+    rng = np.random.default_rng(9)
+    case = match_case(rng, 300, 128)
+    res = match_features_pallas(*[to_t(a) for a in case], min_radius=1.5,
+                                max_radius=60.0, max_distance=260.0,
+                                ratio=0.9)
+    n = int(res.mask.sum())
+    assert n > 40 if cap != 512 else n > 20
+    ours = match_pairs(res, cap)
+    for a, b in zip(ours, _jax_pairs(res, cap)):
+        assert to_np(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(to_np(a), np.asarray(b))
+    idx0, idx1, valid = ours
+    assert int(valid.sum()) == min(n, cap) and len(valid) == min(cap, 300)
+    rows = np.nonzero(to_np(res.mask))[0][:cap]
+    np.testing.assert_array_equal(to_np(idx0)[:len(rows)], rows)
+    np.testing.assert_array_equal(to_np(idx1)[:len(rows)],
+                                  to_np(res.idx)[rows])
+    # a result with no match
+    empty = MatchResult(torch.full((5,), -1, dtype=torch.int32),
+                        torch.full((5,), 1e9), torch.zeros(5, dtype=bool))
+    for a, b in zip(match_pairs(empty, 3), _jax_pairs(empty, 3)):
+        np.testing.assert_array_equal(to_np(a), np.asarray(b))

@@ -238,6 +238,34 @@ def test_runs_repeat_and_equal_the_serial_schedule(port_scan, scene):
     _assert_states_equal(state_to_numpy(serial_scan(scene[0])), first)
 
 
+def test_split_devices_copy_and_equal_one_device(port_scan, scene,
+                                                monkeypatch):
+    """track_device and map_device given as distinct devices (both the CPU
+    here: torch.device("cpu") and torch.device("cpu", 0) differ, so the
+    copy of S0 at each dispatch and of M at each join runs): the result
+    equals the single-device pipeline's bit for bit.  A card test in
+    test_torch_kernels_cuda.py runs the same path with the mapping on the
+    card."""
+    copies = []
+    real = pipeline.tree_map
+
+    def counted(fn, tree, *others):
+        copies.append(type(tree).__name__)
+        return real(fn, tree, *others)
+    monkeypatch.setattr(pipeline, "tree_map", counted)
+    eng, metrics = _async_scan(scene[0], track_device=torch.device("cpu"),
+                               map_device=torch.device("cpu", 0))
+    assert eng.d_track != eng.d_map
+    passes = eng.timer.counts["mapping"]
+    assert passes >= 2 and copies == ["SfMState"] * (2 * passes)
+    _assert_states_equal(state_to_numpy(eng.state),
+                         state_to_numpy(port_scan[0].state))
+    for a, b in zip(metrics, port_scan[1]):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
 def test_pipeline_maps_without_the_keyframes_descriptor_votes(
         scene, monkeypatch):
     """JAX's pipeline calls mapping_pass on the tracked state as it is; the
