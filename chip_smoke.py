@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ring N      # the ring phase alone, N runs
     python3 chip_smoke.py --fleet N     # the fleet phase alone, N runs
     python3 chip_smoke.py --dist        # the dist phase alone
+    python3 chip_smoke.py --raytrace    # the raytrace and anchor phases
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
@@ -111,6 +112,33 @@
    rank's 4 scans equal a fleet of those 4 in one process bit for bit,
    with 2 K1 and 1 K5 launches per batched tracking step; rank 0's K1
    calls at the tracking step are recorded;
+12b. "raytrace": benchmarks/bench_independent_accuracy.py's workload field
+   for field on the card: FLAGSHIP through a real lens model (the engine
+   given the distortion coefficients), 60 frames of 480x640 rendered by
+   the ray-traced validation renderer (sfm_tpu_torch/raytrace.py: the
+   24-box scene of seed 11 on its orbit arc, whole-frame lens
+   distortion, sensor noise 2.5) in 7 processes, fed through add_frames
+   in chunks of keyframe_time_lag; checks: RUNNING >= 90%, >= 6
+   keyframes, extent > 1 m, sim(3) keyframe ATE <= 2% of it, Kopt != K,
+   K1, K5, K2, K3 and K3-gather launched; then "acceptance":
+   benchmarks/bench_acceptance.py's step on the same 60 frames, written
+   as a y4m: ``python -m sfm_tpu_torch.cli scan --chunk 10`` with its
+   command line as a subprocess on the card, and its gates (RUNNING on
+   >= 90% of the metrics lines, >= 5 keyframes in the checkpoint, extent
+   > 1 m, sim(3) ATE <= 2%, >= 85% of the live landmarks within 0.15 m
+   of a scene surface, the PLY holding exactly the live landmarks with
+   colours; a non-zero exit fails);
+12c. "anchor": every port solver (run_ba, run_ba_cg, run_large_ba with
+   precond "jacobi_u" and "schur_diag") on the card against the float64
+   reference solver (sfm_tpu_torch/ba/reference.py, numpy on the host,
+   computed in a process of its own during the raytrace phase) on
+   tests/test_ba_reference.py's 4x60 and 10x300 problems and one at
+   FLAGSHIP's BA width (32 cameras, 2048 landmarks, kmax 8): final cost
+   within 1%, free rvecs within 2e-3, tvecs within 5e-3, K2 / K3 /
+   K3-gather launched; then run_large_ba at bench_ba's problem with
+   precond="schur_diag" twice beside "jacobi_u": the cost must fall and
+   the rerun repeat bit for bit (ms per LM iteration printed, no speed
+   gate);
 13. holds each kernel against its plain PyTorch version at the main path's
    shapes and times both, in device time (torch.profiler) and with CUDA
    events, beside the kernel's bound (bytes over the memory rate or
@@ -179,7 +207,9 @@ the spread of a scan over runs, and whether the runs' final maps agree
 bit for bit (exit 1 when they do not).  ``--fleet N``
 runs one FLAGSHIP single scan (for the rate beside the fleet's) and the
 fleet phase N times, likewise.  ``--dist`` runs the dist phase and its
-kernel rows (the pod's two shapes, the sharded fleet's batch) alone.
+kernel rows (the pod's two shapes, the sharded fleet's batch) alone, and
+``--raytrace`` the raytrace phase (with its acceptance step) and the
+anchor phase alone.
 Any failed check raises, and the script exits non-zero."""
 
 import contextlib
@@ -1032,11 +1062,12 @@ def run_bench_ba(torch, dev, iterations=8, cg_iterations=25):
     from sfm_tpu_torch.ba.large import run_large_ba
     pr = ba_problem(torch, dev, 1000, 100_000, 6)
 
-    def once():
+    def once(precond="jacobi_u"):
         return run_large_ba(pr["K"], pr["rv"], pr["tv"], pr["X"],
                             pr["tables"], cam_free=pr["cam_free"],
                             lm_free=pr["lm_free"], iterations=iterations,
-                            cg_iterations=cg_iterations, tol=0.0)
+                            cg_iterations=cg_iterations, tol=0.0,
+                            precond=precond)
 
     once()
     torch.cuda.synchronize()
@@ -1067,7 +1098,8 @@ def run_bench_ba(torch, dev, iterations=8, cg_iterations=25):
 
 def bench_ba_device(torch, once, iterations=8):
     """One more run_large_ba under torch.profiler: its device ms per LM
-    iteration, and that of the K2 / K3 phases by kernel."""
+    iteration, and that of the K2 / K3 phases by kernel; then one with
+    precond="schur_diag" (its device ms per LM iteration)."""
     parts = {}
     dev_iter = (device_ms(torch, once, 1, parts) or float("nan")) / iterations
     ba = {k: v / iterations for k, v in parts.items()
@@ -1075,7 +1107,12 @@ def bench_ba_device(torch, once, iterations=8):
     log(f"run_large_ba under torch.profiler: device {dev_iter:.3f} ms per LM "
         f"iteration, of which the K2 / K3 phases {sum(ba.values()):.3f} ms ("
         + ", ".join(f"{k} {v:.3f}" for k, v in ba.items()) + ")")
-    return dict(device_ms_per_lm_iter=dev_iter, ba_kernels_ms_per_lm_iter=ba)
+    sd_iter = (device_ms(torch, lambda: once(precond="schur_diag"), 1)
+               or float("nan")) / iterations
+    log(f"run_large_ba precond=schur_diag under torch.profiler: device "
+        f"{sd_iter:.3f} ms per LM iteration (jacobi_u {dev_iter:.3f})")
+    return dict(device_ms_per_lm_iter=dev_iter, ba_kernels_ms_per_lm_iter=ba,
+                schur_diag_device_ms_per_lm_iter=sd_iter)
 
 
 def _kept(torch, t):
@@ -1509,9 +1546,15 @@ _RENDER = {}
 
 def scan_scene(name, n_frames):
     """(scene, rvecs, tvecs) of a scan phase: "longscan" (bench_longscan's
-    serpentine sweep over its scene) or "ring" (bench_loop_closure's
-    outward-looking orbit of ``n_frames`` frames inside its sprite ring)."""
-    from sfm_tpu_torch import synthetic
+    serpentine sweep over its scene), "ring" (bench_loop_closure's
+    outward-looking orbit of ``n_frames`` frames inside its sprite ring) or
+    "raytrace" (bench_independent_accuracy's orbit arc of ``n_frames``
+    frames over its ray-traced 24-box scene)."""
+    from sfm_tpu_torch import raytrace, synthetic
+    if name == "raytrace":
+        return (raytrace.RayScene(seed=11, n_boxes=24),
+                *raytrace.orbit_arc_trajectory(
+                    n_frames, radius=5.5, arc=0.7 * n_frames / 60.0))
     if name == "ring":
         return (synthetic.ring_scene(),
                 *synthetic.ring_loop_trajectory(n_frames, turns=RING_TURNS))
@@ -1532,7 +1575,8 @@ def fleet_scans(n_frames, batch):
 def _render_init(name, n_frames, K, H, W, batch=None):
     scans = fleet_scans(n_frames, batch) if name == "fleet" \
         else [scan_scene(name, n_frames)]
-    _RENDER.update(scans=scans, fleet=name == "fleet", K=K, H=H, W=W)
+    _RENDER.update(scans=scans, fleet=name == "fleet",
+                   raytrace=name == "raytrace", K=K, H=H, W=W)
 
 
 def _render_chunk(lo, hi):
@@ -1543,6 +1587,11 @@ def _render_chunk(lo, hi):
                                    for s, rv, tv in _RENDER["scans"]])
                          for i in range(lo, hi)]).astype(np.uint8)
     scene, rv, tv = _RENDER["scans"][0]
+    if _RENDER["raytrace"]:
+        # the lens's distortion, sensor noise, and the frame's index
+        return np.stack([scene.render(K, rv[i], tv[i], H, W, d=RAYTRACE_DIST,
+                                      noise_std=RAYTRACE_NOISE, frame_no=i)
+                         for i in range(lo, hi)])
     return np.stack([scene.render(K, rv[i], tv[i], H, W)
                      for i in range(lo, hi)])
 
@@ -3854,6 +3903,541 @@ def sharded_fleet_rows(torch, dev, keep):
     return k1, k5
 
 
+# the raytrace phase: benchmarks/bench_independent_accuracy.py's workload
+# field for field (FLAGSHIP; K; the lens's distortion; RayScene(seed=11,
+# n_boxes=24); 60 frames of orbit_arc_trajectory(radius=5.5, arc=0.7) at
+# 480x640; sensor noise 2.5; frame_no = the frame's index) and its gates
+# (RUNNING over all frames, keyframes, extent, the sim(3) keyframe ATE as
+# a share of the extent); then benchmarks/bench_acceptance.py's step on
+# the same frames: a y4m through ``cli scan --chunk 10`` as a subprocess,
+# and its gates (RUNNING over the metrics lines, the checkpoint's
+# keyframes, extent, ATE, the live landmarks within SURFACE_EPS of a
+# scene surface, the PLY holding exactly the live landmarks, coloured).
+# The frames are rendered once, by RAYTRACE_WORKERS processes.
+RAYTRACE_FRAMES = 60
+RAYTRACE_DIST = [-0.22, 0.06, 0.0009, -0.0007, 0.0]
+RAYTRACE_NOISE = 2.5
+RAYTRACE_WORKERS = 7
+RAYTRACE_ATE = 0.02
+RAYTRACE_RUNNING = 0.9
+RAYTRACE_KEYFRAMES = 6
+ACCEPTANCE_KEYFRAMES = 5
+SURFACE_EPS = 0.15      # m, at ~5.5 m scene depth
+SURFACE_GATE = 0.85
+# the anchor phase: every port solver on the card against the f64
+# reference (sfm_tpu_torch/ba/reference.py) on the host, on
+# tests/test_ba_reference.py's two problems (its 4x60 perturbed scene and
+# its 10x300 "medium" scene, made as that file makes them) and on one at
+# FLAGSHIP's BA width (32 keyframes, 2048 landmarks, each seen by 2 to 8
+# consecutive keyframes: kmax 8); the gates are that file's
+ANCHOR_COST_RTOL = 0.01
+ANCHOR_RVEC_ATOL = 2e-3
+ANCHOR_TVEC_ATOL = 5e-3
+ANCHOR_REFERENCE_KW = dict(iterations=40, tol=1e-10)
+ANCHOR_SOLVERS = ("run_ba", "run_ba_cg", "run_large_ba jacobi_u",
+                  "run_large_ba schur_diag")
+ANCHOR_KERNELS = ("ba_linearize", "schur_apply", "schur_gather")
+
+
+def write_y4m(path, frames):
+    """Encode grayscale frames as full-resolution C444 YUV4MPEG2
+    (benchmarks/bench_acceptance.py's ``write_y4m``)."""
+    n, h, w = frames.shape
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F25:1 Ip A1:1 C444\n".encode())
+        chroma = np.full((h, w), 128, np.uint8).tobytes()
+        for i in range(n):
+            f.write(b"FRAME\n")
+            f.write(np.clip(frames[i], 0, 255).astype(np.uint8).tobytes())
+            f.write(chroma)
+            f.write(chroma)
+
+
+def surface_distance(scene, pts):
+    """Distance from each point to the nearest rendered scene surface
+    (floor plane y=floor_y, or any box face)
+    (benchmarks/bench_acceptance.py's ``surface_distance``)."""
+    d = np.abs(pts[:, 1] - scene.floor_y)            # floor plane
+    for bmin, bmax in zip(scene.bmin, scene.bmax):
+        # distance to the box SURFACE: outside -> clamp gap; inside ->
+        # distance to the nearest face
+        lo = bmin - pts
+        hi = pts - bmax
+        gap = np.maximum(np.maximum(lo, hi), 0.0)
+        outside = np.linalg.norm(gap, axis=1)
+        inside = np.minimum(np.min(pts - bmin, 1), np.min(bmax - pts, 1))
+        db = np.where(outside > 0, outside, np.abs(np.minimum(inside, 0))
+                      + np.maximum(inside, 0))
+        d = np.minimum(d, db)
+    return d
+
+
+def keyframe_centres(state, rvecs, tvecs):
+    """(estimated, true) camera centres of a state's keyframes in frame
+    order, the true ones from the ground-truth poses by frame number, as
+    the two benchmarks take them."""
+    from sfm_tpu_torch.raytrace import _rot
+    kfs = state.kfs
+    valid = kfs.valid.cpu().numpy()
+    fns = kfs.frames.frame_no.cpu().numpy()[valid]
+    order = np.argsort(fns)
+    rv = kfs.frames.rvec.cpu().numpy()[valid][order]
+    tv = kfs.frames.tvec.cpu().numpy()[valid][order]
+    if len(rv) < 3:
+        raise AssertionError(f"{len(rv)} keyframes: no trajectory to align")
+    est_c = np.stack([-_rot(rv[i]).T @ tv[i] for i in range(len(rv))])
+    gt_c = np.stack([-_rot(rvecs[f]).T @ tvecs[f] for f in fns[order]])
+    return est_c, gt_c
+
+
+def run_acceptance(torch, dev, frames, scene, rvecs, tvecs, K=K,
+                   cli_args=()):
+    """benchmarks/bench_acceptance.py's steps 2 and 3 on ``frames``: the
+    y4m written in a temporary directory, ``python -m sfm_tpu_torch.cli
+    scan`` on it as a subprocess with that script's command line (on the
+    card: the CLI's default device; ``cli_args`` are added, e.g. the
+    device of a rehearsal), then its gates on the metrics
+    lines, the checkpoint and the PLY.  Returns the numbers and the
+    checks."""
+    import os
+    import shutil
+
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.io import load_state, read_ply
+    from sfm_tpu_torch.raytrace import sim3_align
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix="sfm_acceptance_")
+    try:
+        p = lambda name: os.path.join(d, name)  # noqa: E731
+        write_y4m(p("scan.y4m"), frames)
+        cmd = [sys.executable, "-m", "sfm_tpu_torch.cli", "scan",
+               "--input", p("scan.y4m"), "--output", p("cloud.ply"),
+               "--fx", str(float(K[0, 0])), "--fy", str(float(K[1, 1])),
+               "--cx", str(float(K[0, 2])), "--cy", str(float(K[1, 2])),
+               "--dist"] + [str(x) for x in RAYTRACE_DIST] + [
+               "--chunk", "10", "--feature-dtype", "bfloat16",
+               "--checkpoint", p("state.npz"), "--metrics", p("metrics.jsonl"),
+               *cli_args]
+        pp = os.environ.get("PYTHONPATH", "")
+        env = dict(os.environ,
+                   PYTHONPATH=root + (os.pathsep + pp if pp else ""))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()     # room for the child on the card
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        log(f"[acceptance] cli scan: exit {proc.returncode} in "
+            f"{cli_s:.3f} s; its stderr ends: {proc.stderr[-600:].strip()}")
+        if proc.returncode != 0:       # the exit code is the first gate
+            raise AssertionError(f"cli scan exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        lines = [json.loads(ln) for ln in open(p("metrics.jsonl"))]
+        # the configuration the CLI builds: its default capacities at the
+        # frames' size
+        H, W = frames.shape[1:]
+        cfg = SfMConfig(image_height=H, image_width=W,
+                        feature_dtype="bfloat16", **CLI_CAPS)
+        state = load_state(p("state.npz"), cfg, "cpu")
+        xyz_ply, rgb_ply = read_ply(p("cloud.ply"))
+    finally:
+        shutil.rmtree(d)
+    running = float(np.mean([m["status"] == 1 for m in lines]))
+    est_c, gt_c = keyframe_centres(state, rvecs, tvecs)
+    s, R, t = sim3_align(est_c, gt_c)
+    resid = gt_c - ((s * (R @ est_c.T)).T + t)
+    ate = float(np.sqrt((resid ** 2).sum(1).mean()))
+    extent = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    lms_valid = state.lms.valid.numpy()
+    lm_gt = (s * (R @ state.lms.xyz.numpy()[lms_valid].T)).T + t
+    on_surface = float((surface_distance(scene, lm_gt) < SURFACE_EPS).mean())
+    n_lms = int(lms_valid.sum())
+    log(f"[acceptance] RUNNING {running:.1%} of {len(lines)} metrics lines; "
+        f"{len(est_c)} keyframes; {n_lms} landmarks; ATE {ate:.5f} over "
+        f"{extent:.3f} m ({100 * ate / extent:.3f}%); cloud on a surface "
+        f"{on_surface:.1%} (eps {SURFACE_EPS} m); PLY {len(xyz_ply)} points, "
+        f"coloured {rgb_ply is not None}; {len(frames) / cli_s:.3f} frames/s "
+        f"for the whole command")
+    checks = {
+        "RUNNING >= 90% of the metrics lines": running >= RAYTRACE_RUNNING,
+        f"keyframes >= {ACCEPTANCE_KEYFRAMES}":
+        len(est_c) >= ACCEPTANCE_KEYFRAMES,
+        "extent > 1 m": extent > 1.0,
+        "sim(3) ATE <= 2% of extent": ate <= RAYTRACE_ATE * extent,
+        f">= 85% of the live landmarks within {SURFACE_EPS} m of a surface":
+        on_surface >= SURFACE_GATE,
+        "the PLY holds exactly the live landmarks, coloured":
+        len(xyz_ply) == n_lms > 0 and rgb_ply is not None,
+    }
+    return dict(cli_s=cli_s, running=running, keyframes=len(est_c),
+                landmarks=n_lms, ate_pct=100 * ate / extent, extent=extent,
+                on_surface=on_surface, ply_points=len(xyz_ply)), checks
+
+
+def raytrace_frames(K, H, W, n_frames=RAYTRACE_FRAMES,
+                    workers=RAYTRACE_WORKERS):
+    """The raytrace phase's frames [n_frames, H, W] float32, one frame a
+    task on ``workers`` processes, and the seconds they took."""
+    t0 = time.perf_counter()
+    frames = np.concatenate(list(rendered_chunks(
+        n_frames, 1, K, H, W, workers, scene="raytrace")))
+    render_s = time.perf_counter() - t0
+    log(f"[raytrace] rendered {n_frames} frames of {H}x{W} in "
+        f"{render_s:.3f} s by {workers} processes")
+    return frames, render_s
+
+
+def run_raytrace(torch, dev, cfg, kernels=MAIN_PATH, K=K,
+                 n_frames=RAYTRACE_FRAMES, workers=RAYTRACE_WORKERS,
+                 acceptance=True, cli_args=(), frames=None):
+    """benchmarks/bench_independent_accuracy.py's run on the card: the
+    ray-traced frames (``raytrace_frames``, unless given), fed to
+    ``SfMEngine(K, (H, W), dist, cfg)`` through add_frames in chunks of
+    keyframe_time_lag (the remainder dropped, as the script drops it);
+    its gates, the lens model in use (Kopt != K) and every counter in
+    ``kernels`` launched by the scan.  With ``acceptance``, then
+    ``run_acceptance`` on the same frames.  Any failed gate raises."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.engine import SfMEngine
+    from sfm_tpu_torch.raytrace import sim3_ate
+
+    H, W = cfg.image_size
+    scene, rvecs, tvecs = scan_scene("raytrace", n_frames)
+    render_s = None
+    if frames is None:
+        frames, render_s = raytrace_frames(K, H, W, n_frames, workers)
+    T = cfg.keyframe_time_lag
+    eng = SfMEngine(K, (H, W), RAYTRACE_DIST, cfg, device=dev, seed=0)
+    staged = [torch.as_tensor(frames[s:s + T], device=dev)
+              for s in range(0, n_frames - n_frames % T, T)]
+    sync(torch, dev)
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = eng.add_frames(staged[0])
+    sync(torch, dev)
+    first_s = time.perf_counter() - t0
+    for ch in staged[1:]:
+        metrics += eng.add_frames(ch)
+    sync(torch, dev)
+    scan_s = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    status = np.array([int(m["status"]) for m in metrics])
+    running = float((status == 1).mean())
+    est_c, gt_c = keyframe_centres(eng.state, rvecs, tvecs)
+    ate = sim3_ate(est_c, gt_c)
+    extent = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    n_lms = int(eng.state.lms.valid.sum())
+    kopt = eng.cam.Kopt.cpu().numpy()
+    fps = (len(metrics) - T) / (scan_s - first_s) if len(staged) > 1 \
+        else float("nan")
+    log(f"[raytrace] RUNNING {running:.1%} of {len(metrics)} frames; "
+        f"{len(est_c)} keyframes; {n_lms} landmarks; ATE {ate:.5f} over "
+        f"{extent:.3f} m ({100 * ate / extent:.3f}%); Kopt fx {kopt[0, 0]:.3f} "
+        f"cx {kopt[0, 2]:.3f} (K: {K[0, 0]}, {K[0, 2]}); first chunk "
+        f"{first_s:.3f} s, then {fps:.3f} frames/s; launches {launches}")
+    checks = {
+        "RUNNING >= 90%": running >= RAYTRACE_RUNNING,
+        f"keyframes >= {RAYTRACE_KEYFRAMES}": len(est_c) >= RAYTRACE_KEYFRAMES,
+        "extent > 1 m": extent > 1.0,
+        "sim(3) keyframe ATE <= 2% of extent": ate <= RAYTRACE_ATE * extent,
+        "the lens model is in use (Kopt != K)": not np.array_equal(kopt, K),
+        "landmarks finite": n_lms > 0 and bool(torch.isfinite(
+            eng.state.lms.xyz[eng.state.lms.valid]).all()),
+    }
+    for name in kernels:
+        checks[f"{name} launched by the scan"] = launches[name] > 0
+    run_checks("raytrace", checks)
+    out = dict(render_s=render_s, first_chunk_s=first_s, scan_s=scan_s,
+               fps=fps, running=running, keyframes=len(est_c),
+               landmarks=n_lms, ate_pct=100 * ate / extent, extent=extent,
+               launches=launches)
+    if acceptance:
+        out["acceptance"], checks = run_acceptance(
+            torch, dev, frames, scene, rvecs, tvecs, K, cli_args)
+        run_checks("acceptance", checks)
+    return out
+
+
+def anchor_small(rng, n_cams=4, n_pts=60, noise_px=0.5):
+    """tests/test_ba_reference.py's ``_perturbed_scene`` (the scene of
+    tests/test_ba.py's ``make_ba_scene``, perturbed), made as those make
+    it, in numpy: every camera sees every landmark, camera 0 frozen at its
+    true pose."""
+    from sfm_tpu_torch.np_geometry import DEFAULT_K, project_np, rodrigues_np
+    X = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-2, 2, n_pts),
+                  rng.uniform(5, 9, n_pts)], axis=1).astype(np.float32)
+    rvecs, tvecs, uvs = [], [], []
+    for c in range(n_cams):
+        rv = rng.uniform(-0.05, 0.05, 3).astype(np.float32)
+        tv = np.array([0.4 * c, 0.0, 0.0], np.float32) + \
+            rng.uniform(-0.05, 0.05, 3).astype(np.float32)
+        uv = project_np(DEFAULT_K, rodrigues_np(rv), tv, X).astype(np.float32)
+        uv += rng.normal(0, noise_px, uv.shape).astype(np.float32)
+        rvecs.append(rv)
+        tvecs.append(tv)
+        uvs.append(uv)
+    rvec, tvec = np.stack(rvecs), np.stack(tvecs)
+    obs = (np.repeat(np.arange(n_cams), n_pts).astype(np.int32),
+           np.tile(np.arange(n_pts), n_cams).astype(np.int32),
+           np.concatenate(uvs).astype(np.float32),
+           np.ones(n_cams * n_pts, np.float32))
+    rv0 = rvec + rng.normal(0, 0.01, rvec.shape)
+    tv0 = tvec + rng.normal(0, 0.01, tvec.shape)
+    X0 = X + rng.normal(0, 0.03, X.shape)
+    rv0[0], tv0[0] = rvec[0], tvec[0]          # gauge anchor
+    cam_free = np.ones(n_cams, bool)
+    cam_free[0] = False
+    return dict(K=DEFAULT_K, rv=rv0.astype(np.float32),
+                tv=tv0.astype(np.float32), X=X0.astype(np.float32), obs=obs,
+                cam_free=cam_free, lm_free=np.ones(n_pts, bool), nmax=64,
+                kmax=4, cg=40)
+
+
+def anchor_medium(rng, n_cams=10, n_pts=300, per_cam=120):
+    """tests/test_ba_reference.py's ``test_medium_scale_parity`` problem,
+    made as that test makes it: 10 cameras each seeing 120 of 300
+    landmarks, 0.5 px noise, camera 0 frozen.  The reference starts from
+    the float64 start point, the solvers from its float32 copy, as
+    there."""
+    from sfm_tpu_torch.np_geometry import DEFAULT_K, project_np, rodrigues_np
+    X = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                  rng.uniform(6, 12, n_pts)], 1)
+    ci, li, uvs, rvs, tvs = [], [], [], [], []
+    for c in range(n_cams):
+        rv = rng.uniform(-0.03, 0.03, 3)
+        tv = np.array([0.2 * c, 0, 0])
+        rvs.append(rv)
+        tvs.append(tv)
+        sel = rng.choice(n_pts, per_cam, replace=False)
+        uv = project_np(DEFAULT_K, rodrigues_np(rv), tv, X[sel])
+        uv = uv + rng.normal(0, 0.5, uv.shape)
+        ci.append(np.full(per_cam, c))
+        li.append(sel)
+        uvs.append(uv)
+    obs = (np.concatenate(ci).astype(np.int32),
+           np.concatenate(li).astype(np.int32),
+           np.concatenate(uvs).astype(np.float32),
+           np.ones(n_cams * per_cam, np.float32))
+    rv0 = np.stack(rvs) + rng.normal(0, 0.005, (n_cams, 3))
+    tv0 = np.stack(tvs) + rng.normal(0, 0.005, (n_cams, 3))
+    X0 = X + rng.normal(0, 0.02, X.shape)
+    rv0[0], tv0[0] = rvs[0], tvs[0]
+    cam_free = np.ones(n_cams, bool)
+    cam_free[0] = False
+    return dict(K=DEFAULT_K, rv=rv0, tv=tv0, X=X0, obs=obs,
+                cam_free=cam_free, lm_free=np.ones(n_pts, bool), nmax=256,
+                kmax=16, cg=50)
+
+
+def anchor_wide(rng, n_cams=32, n_pts=2048, kmax=8, noise_px=0.5):
+    """A problem at FLAGSHIP's BA width: 32 cameras strafing 0.1 apart,
+    2048 landmarks each seen by 2 to ``kmax`` consecutive cameras, 0.5 px
+    noise, the medium problem's perturbations.  Cameras 0 and 1 are
+    frozen at their true poses: the first fixes the pose gauge, the second
+    the scale (which no other term fixes, and on which the f32 solvers
+    and the reference could otherwise settle apart).  The CG solvers run
+    100 CG iterations a step: the chain of 30 free cameras is weakly
+    held along its length, and at the 4x60 scene's 40 or the medium
+    one's 50 the inner solve stops short there (on the CPU: final costs
+    within 4e-6 of the reference's, tvecs 1.1e-2 to 1.4e-2 from it; at
+    100, within 2.5e-3)."""
+    from sfm_tpu_torch.np_geometry import DEFAULT_K, project_np, rodrigues_np
+    X = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                  rng.uniform(6, 12, n_pts)], 1)
+    rvs = rng.uniform(-0.03, 0.03, (n_cams, 3))
+    tvs = np.stack([0.1 * np.arange(n_cams), np.zeros(n_cams),
+                    np.zeros(n_cams)], 1)
+    n = rng.integers(2, kmax + 1, n_pts)
+    first = rng.integers(0, n_cams - n + 1)
+    li = np.repeat(np.arange(n_pts), n)
+    ci = np.concatenate([f + np.arange(k) for f, k in zip(first, n)])
+    uv = np.empty((len(ci), 2))
+    for c in range(n_cams):
+        on = ci == c
+        uv[on] = project_np(DEFAULT_K, rodrigues_np(rvs[c]), tvs[c],
+                            X[li[on]])
+    uv = uv + rng.normal(0, noise_px, uv.shape)
+    obs = (ci.astype(np.int32), li.astype(np.int32), uv.astype(np.float32),
+           np.ones(len(ci), np.float32))
+    rv0 = rvs + rng.normal(0, 0.005, rvs.shape)
+    tv0 = tvs + rng.normal(0, 0.005, tvs.shape)
+    X0 = X + rng.normal(0, 0.02, X.shape)
+    rv0[:2], tv0[:2] = rvs[:2], tvs[:2]
+    cam_free = np.ones(n_cams, bool)
+    cam_free[:2] = False
+    return dict(K=DEFAULT_K, rv=rv0, tv=tv0, X=X0, obs=obs,
+                cam_free=cam_free, lm_free=np.ones(n_pts, bool),
+                nmax=n_pts, kmax=kmax, cg=100)
+
+
+def anchor_problems(wide=(32, 2048, 8)):
+    """The anchor phase's problems by name, each from its own
+    default_rng(0) (as each of the test's cases gets a fresh one);
+    ``wide`` = (cameras, landmarks, kmax) of the third."""
+    return {"4x60": anchor_small(np.random.default_rng(0)),
+            "10x300 medium": anchor_medium(np.random.default_rng(0)),
+            f"{wide[0]}x{wide[1]} kmax {wide[2]}": anchor_wide(
+                np.random.default_rng(0), *wide)}
+
+
+def anchor_references(problems):
+    """The f64 reference's solution of each problem (rvec, tvec, xyz, the
+    accepted costs) and its host seconds."""
+    from sfm_tpu_torch.ba.reference import reference_ba
+    out = {}
+    for name, p in problems.items():
+        t0 = time.perf_counter()
+        ref = reference_ba(p["K"], p["rv"], p["tv"], p["X"], *p["obs"],
+                           cam_free=p["cam_free"], lm_free=p["lm_free"],
+                           **ANCHOR_REFERENCE_KW)
+        out[name] = (ref, time.perf_counter() - t0)
+    return out
+
+
+def anchor_solve(torch, dev, p, solver):
+    """One port solver on problem ``p`` on ``dev``, with the test's
+    settings (30 LM iterations, tol 1e-8, the problem's CG iterations):
+    (rvec, tvec, final cost, seconds)."""
+    from sfm_tpu_torch.ba import run_ba, run_ba_cg
+    from sfm_tpu_torch.ba.large import build_tables, run_large_ba
+    from sfm_tpu_torch.ba.residuals import Observations
+    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.asarray(a), dtype=dt, device=dev)
+    ci, li, uv, w = p["obs"]
+    obs = Observations(t(ci, torch.int64), t(li, torch.int64), t(uv), t(w))
+    args = (t(p["K"]), t(p["rv"]), t(p["tv"]), t(p["X"]))
+    kw = dict(cam_free=t(p["cam_free"], torch.bool),
+              lm_free=t(p["lm_free"], torch.bool), iterations=30, tol=1e-8)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    if solver == "run_ba":
+        rv, tv, _, st = run_ba(*args, obs, **kw)
+    elif solver == "run_ba_cg":
+        rv, tv, _, st = run_ba_cg(*args, obs, cg_iterations=p["cg"], **kw)
+    else:
+        tables = build_tables(Observations(*(x.cpu() for x in obs)),
+                              len(p["rv"]), len(p["X"]), p["nmax"],
+                              p["kmax"])
+        tables = type(tables)(*(x.to(dev) for x in tables))
+        rv, tv, _, st = run_large_ba(*args, tables, cg_iterations=p["cg"],
+                                     precond=solver.split()[1], **kw)
+    cost = float(st.final_cost)
+    return (rv.cpu().numpy(), tv.cpu().numpy(), cost,
+            time.perf_counter() - t0)
+
+
+def run_anchor(torch, dev, bench_once=None, problems=None, references=None,
+               bench_iterations=8, kernels=ANCHOR_KERNELS):
+    """Every port solver on ``dev`` against the f64 reference on each of
+    ``problems`` (``anchor_problems()`` by default; ``references``, a
+    function returning ``anchor_references(problems)``, e.g. a future's
+    result, or computed here): final cost within 1% of the reference's,
+    the free rvecs within 2e-3 and tvecs within 5e-3; every counter in
+    ``kernels`` launched.  Then, with ``bench_once`` (``run_bench_ba``'s
+    run), bench_ba's problem under precond="jacobi_u", "schur_diag"
+    twice, "jacobi_u" again: schur_diag's cost must fall, and each
+    preconditioner's rerun repeat bit for bit; host ms per LM iteration
+    and the final costs are printed, with no speed gate."""
+    from sfm_tpu_torch import native
+    problems = problems or anchor_problems()
+    native.reset_launch_counts()
+    solved, checks = {}, {}
+    for name, p in problems.items():
+        for solver in ANCHOR_SOLVERS:
+            solved[name, solver] = anchor_solve(torch, dev, p, solver)
+    bench = {}
+    if bench_once is not None:
+        # in turns (jacobi_u, schur_diag, schur_diag, jacobi_u): the host
+        # clock spreads between runs, and each pair's mean cancels a drift
+        for label, precond in (("jacobi_u", "jacobi_u"),
+                               ("schur_diag", "schur_diag"),
+                               ("schur_diag rerun", "schur_diag"),
+                               ("jacobi_u rerun", "jacobi_u")):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            rv, tv, X, st = bench_once(precond=precond)
+            sync(torch, dev)
+            bench[label] = dict(
+                ms_per_lm_iter=1e3 * (time.perf_counter() - t0)
+                / bench_iterations, initial_cost=float(st.initial_cost),
+                final_cost=float(st.final_cost), accepted=int(st.accepted),
+                out=(rv, tv, X))
+            log(f"[anchor] bench_ba's problem, precond={precond}: "
+                f"{bench[label]['ms_per_lm_iter']:.3f} ms per LM iteration "
+                f"(host clock, {bench_iterations} LM x 25 CG), cost "
+                f"{bench[label]['initial_cost']:.6e} -> "
+                f"{bench[label]['final_cost']:.6e}, "
+                f"{bench[label]['accepted']} accepted")
+        sd = bench["schur_diag"]
+        checks["schur_diag at bench_ba: the cost falls"] = bool(
+            np.isfinite(sd["final_cost"])
+            and sd["final_cost"] < sd["initial_cost"])
+        for pc in ("schur_diag", "jacobi_u"):
+            a, b = bench[pc], bench[f"{pc} rerun"]
+            checks[f"{pc} at bench_ba: a rerun repeats bit for bit"] = all(
+                torch.equal(x, y) for x, y in zip(a["out"], b["out"])) \
+                and a["final_cost"] == b["final_cost"]
+        for b in bench.values():
+            b.pop("out")
+        log("[anchor] bench_ba's problem: schur_diag "
+            f"{(sd['ms_per_lm_iter'] + bench['schur_diag rerun']['ms_per_lm_iter']) / 2:.3f}"
+            " ms per LM iteration beside jacobi_u "
+            f"{(bench['jacobi_u']['ms_per_lm_iter'] + bench['jacobi_u rerun']['ms_per_lm_iter']) / 2:.3f}"
+            " (means of two, in turns; host clock)")
+    launches = dict(native.LAUNCHES)
+    t0 = time.perf_counter()
+    refs = references() if references is not None \
+        else anchor_references(problems)
+    wait_s = time.perf_counter() - t0
+    rows = {}
+    for (name, solver), (rv, tv, cost, secs) in solved.items():
+        (rv_ref, tv_ref, _, costs), ref_s = refs[name]
+        free = problems[name]["cam_free"]
+        rel = abs(cost - costs[-1]) / costs[-1]
+        drv = float(np.abs(rv - rv_ref)[free].max())
+        dtv = float(np.abs(tv - tv_ref)[free].max())
+        rows[f"{name} {solver}"] = dict(
+            cost=cost, reference_cost=costs[-1], cost_rel=rel, rvec=drv,
+            tvec=dtv, seconds=secs, reference_seconds=ref_s)
+        log(f"[anchor] {name}, {solver}: final cost {cost:.6e} against the "
+            f"f64 reference's {costs[-1]:.6e} ({rel:.3e} relative); free "
+            f"rvec {drv:.3e}, tvec {dtv:.3e} from it; {secs:.3f} s (the "
+            f"reference {ref_s:.3f} s on the host, {len(costs) - 1} "
+            f"accepted)")
+        checks[f"{name} {solver}: cost within 1%, rvec 2e-3, tvec 5e-3"] = (
+            rel <= ANCHOR_COST_RTOL and drv <= ANCHOR_RVEC_ATOL
+            and dtv <= ANCHOR_TVEC_ATOL)
+    for name in kernels:
+        checks[f"{name} launched"] = launches.get(name, 0) > 0
+    log(f"[anchor] launches {launches}; waited {wait_s:.3f} s for the f64 "
+        f"references")
+    run_checks("anchor", checks)
+    return dict(rows=rows, bench_ba=bench, launches=launches,
+                reference_wait_s=wait_s)
+
+
+def raytrace_and_anchor(torch, dev, bench_once=None):
+    """The raytrace phase (with its acceptance step), then the anchor
+    phase, whose f64 references run on the host in a process of their own
+    meanwhile; without ``bench_once``, ``run_bench_ba`` builds bench_ba's
+    problem first.  Returns both phases' outputs."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from sfm_tpu_torch.config import FLAGSHIP, SfMConfig
+    if bench_once is None:
+        _, bench_once = run_bench_ba(torch, dev)
+    problems = anchor_problems()
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        references = pool.submit(anchor_references, problems)
+        raytrace = run_raytrace(torch, dev, SfMConfig(**FLAGSHIP))
+        anchor = run_anchor(torch, dev, bench_once, problems,
+                            references.result)
+    return raytrace, anchor
+
+
 def ring_runs(torch, n):
     """The ring phase alone, ``n`` times on one card: each run's checks and
     numbers as a JSON line (its K1 calls are not replayed), then whether
@@ -3947,6 +4531,10 @@ def main(argv):
         print(card[0])
         return 0
     from sfm_tpu_torch.config import FLAGSHIP, LONGSCAN, RING, SLICE, SfMConfig
+    if "--raytrace" in argv:
+        print(json.dumps(raytrace_and_anchor(torch, dev), default=str))
+        print(card[0])
+        return 0
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
                          MAIN_PATH, k1_calls=k1_calls, keep=True)
@@ -3982,6 +4570,7 @@ def main(argv):
     fleet = run_fleet(torch, dev, SfMConfig(**FLAGSHIP),
                       k1_calls=fleet_k1_calls, single_fps=flagship["fps"])
     dist = run_dist(torch, dev)
+    raytrace, anchor = raytrace_and_anchor(torch, dev, bench_once)
     # the kernels against their plain versions, with the timings under
     # torch.profiler last: a profiler session leaves the host slower for
     # the host-bound phases after it
@@ -4043,7 +4632,8 @@ def main(argv):
             launches_by_phase=dict(
                 {ph: out["launches"][name] for ph, out in (
                     ("flagship", flagship), ("pipeline", pipeline),
-                    ("serve", serve), ("helpers", helpers))},
+                    ("serve", serve), ("raytrace", raytrace),
+                    ("anchor", anchor), ("helpers", helpers))},
                 dist=dist["launches"].get(name, 0)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -4172,6 +4762,7 @@ def main(argv):
         "pipeline": pipeline, "serve": serve, "helpers": helpers,
         "dense_rerun_digest_equal": dense_again["digest"] == dense["digest"],
         "longscan": longscan, "ring": ring, "fleet": fleet, "dist": dist,
+        "raytrace": raytrace, "anchor": anchor,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))

@@ -17,4 +17,7 @@ def __getattr__(name):
     if name == "SfMEngine":
         from .engine import SfMEngine
         return SfMEngine
+    if name == "PointCloud":
+        from .io import PointCloud
+        return PointCloud
     raise AttributeError(name)

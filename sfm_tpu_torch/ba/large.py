@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..geometry.rotations import exp_so3
+from ..utils.rowsum import RowSum
 from .core import BAStats, _damp, _inv
 from .linearize_pallas import ba_linearize, damped_vinv
 from .residuals import Observations, apply_pose_update
@@ -188,6 +189,14 @@ def _pcg(matvec, M_inv, rhs, iterations: int):
     return x
 
 
+def _schur_coupling_diag(W, Vinv, cam_sum: RowSum) -> torch.Tensor:
+    """[C, 6, 6]: sum_j W_cj Vinv_j W_cj^T per camera c, from W [L, kmax,
+    6, 3] and Vinv [L, 3, 3]: each slot's product, summed per camera by
+    ``cam_sum`` (a ``RowSum`` over the table's slots)."""
+    P = (W @ Vinv[:, None]) @ W.transpose(-1, -2)
+    return cam_sum(P.reshape(-1, 6, 6))
+
+
 def _local(*ts):
     """The per-camera sums of an unsharded problem are already whole."""
     return ts
@@ -196,14 +205,16 @@ def _local(*ts):
 def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
               *, iterations: int, cg_iterations: int, lam0: float,
               lam_up: float, lam_down: float, huber_delta: float, tol: float,
-              reduce=_local):
+              reduce=_local, precond: str = "jacobi_u"):
     """The LM and PCG loop of ``run_large_ba`` on a landmark-major table.
     ``reduce(*ts) -> ts`` sums per-camera partial sums over the shards of a
     landmark-sharded problem (``parallel.dist_large_ba``): K2's U, g_cam and
     cost, and K3's [C, 6] products; the identity on a whole problem.  Every
     shard then holds the same camera terms and solves the camera system
     itself.  One host read per iteration, after the cost is reduced, so
-    every shard reads the same accept flag."""
+    every shard reads the same accept flag.  ``precond``: the PCG's
+    block-Jacobi blocks, "jacobi_u" (the damped U blocks) or "schur_diag"
+    (the exact diagonal blocks of the Schur complement)."""
     C = rvec.shape[0]
     lm_cam = lm_cam.to(torch.int32).contiguous()
     lm_uv = lm_uv.contiguous()
@@ -211,6 +222,10 @@ def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
     K = K.contiguous()
     eye6 = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
     cslots = camera_slots(lm_cam, lm_w, C)
+    if precond == "schur_diag":
+        # per-camera sums of the slots' products in cslots' fixed order,
+        # so that reruns on the card repeat bit for bit
+        cam_sum = RowSum.from_csr(cslots.offsets, cslots.slots)
 
     def linearize(rvec, tvec, xyz):
         W, V, g_lm, U, g_cam, cost = ba_linearize(
@@ -226,15 +241,24 @@ def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
     for _ in range(iterations):
         W, V, g_lm, U, g_cam = blocks
         Ud = _damp(U, lam)
-        op = SchurOperator(W, lm_cam, damped_vinv(V, lam), cslots)
+        vinv = damped_vinv(V, lam)
+        op = SchurOperator(W, lm_cam, vinv, cslots)
 
         def matvec(x):
             return (Ud @ x[:, :, None])[..., 0] - reduce(op.w_vinv_wt_x(x))[0]
 
         rhs = g_cam - reduce(op.w_vinv_g(g_lm, C))[0]
-        # block-Jacobi preconditioner: damped U blocks; _damp's 1e-6 floor
-        # and this one are both kept, as in the JAX package
-        d_cam = _pcg(matvec, _inv(Ud + 1e-6 * eye6), rhs, cg_iterations)
+        if precond == "schur_diag":
+            # block-Jacobi on the exact diagonal of S = damp(U) - W V^-1 W^T:
+            # S_cc = damp(U_cc) - sum_j W_cj Vinv_j W_cj^T over camera c's
+            # slots (a dead slot is in none, a frozen camera's W is 0)
+            P = reduce(_schur_coupling_diag(W, vinv, cam_sum))[0]
+            M_inv = _inv(Ud - P + 1e-6 * eye6)
+        else:
+            # block-Jacobi preconditioner: damped U blocks; _damp's 1e-6
+            # floor and this one are both kept, as in the JAX package
+            M_inv = _inv(Ud + 1e-6 * eye6)
+        d_cam = _pcg(matvec, M_inv, rhs, cg_iterations)
         d_cam = d_cam * cam_free_f[:, None]
         d_lm = op.back_substitute(g_lm, d_cam) * lm_free_f[:, None]
         rv_new, tv_new = apply_pose_update(rvec, tvec, d_cam[:, :3],
@@ -271,15 +295,16 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,
     freeze parameters.  One linearisation (K2) per LM iteration, at the
     trial point; CG, the rhs and back-substitution go through K3; both
     kernels share one ``camera_slots`` index per call.  One host read per
-    iteration (accept flag and early exit together)."""
-    if precond == "schur_diag":
-        raise NotImplementedError(
-            "precond='schur_diag' is not ported (ROADMAP.md, kept out on "
-            "purpose: a negative result that needs camera-major W blocks)")
-    if precond != "jacobi_u":
+    iteration (accept flag and early exit together).  ``precond``:
+    "jacobi_u" inverts the damped U blocks; "schur_diag" the exact diagonal
+    blocks of the reduced camera system, damp(U_cc) - sum_j W_cj V_j^-1
+    W_cj^T, built each LM iteration from K2's W and the damped V^-1 (torch
+    ops; for camera graphs with hub cameras)."""
+    if precond not in ("jacobi_u", "schur_diag"):
         raise ValueError(f"unknown preconditioner {precond!r}")
     return _large_lm(
         K, rvec, tvec, xyz, tables.lm_cam, tables.lm_uv, tables.lm_w,
         cam_free.to(torch.float32), lm_free.to(torch.float32),
         iterations=iterations, cg_iterations=cg_iterations, lam0=lam0,
-        lam_up=lam_up, lam_down=lam_down, huber_delta=huber_delta, tol=tol)
+        lam_up=lam_up, lam_down=lam_down, huber_delta=huber_delta, tol=tol,
+        precond=precond)

@@ -24,10 +24,26 @@ class RowSum:
         bounds = torch.searchsorted(
             keys, torch.arange(n_rows + 1, device=keys.device))
         self.lengths = bounds[1:] - bounds[:-1]
+        self.n_rows = n_rows
+
+    @classmethod
+    def from_csr(cls, offsets: torch.Tensor, order: torch.Tensor) -> "RowSum":
+        """The sums of an index already sorted into CSR form: target r (of
+        ``len(offsets) - 1``) sums the source rows ``order[offsets[r]:
+        offsets[r + 1]]`` in that order; the rows of ``order`` past
+        ``offsets[-1]`` go to no target.  No host read."""
+        rs = cls.__new__(cls)
+        rs.order = order.to(torch.int64)
+        bounds = torch.cat([offsets.to(torch.int64),
+                            rs.order.new_full((1,), order.shape[0])])
+        rs.lengths = bounds[1:] - bounds[:-1]
+        rs.n_rows = offsets.shape[0] - 1
+        return rs
 
     def __call__(self, src: torch.Tensor) -> torch.Tensor:
         return torch.segment_reduce(src[self.order], "sum",
-                                    lengths=self.lengths, unsafe=True)
+                                    lengths=self.lengths,
+                                    unsafe=True)[:self.n_rows]
 
 
 def add_rows(base: torch.Tensor, index: torch.Tensor,

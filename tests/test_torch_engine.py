@@ -364,6 +364,8 @@ def test_imports_without_jax():
             "from sfm_tpu_torch.ransac import ransac_homography\n"
             "from sfm_tpu_torch.utils import (device_trace, "
             "summarize_metrics, write_metrics_jsonl)\n"
+            "import sfm_tpu_torch.raytrace, sfm_tpu_torch.ba.reference\n"
+            "from sfm_tpu_torch import PointCloud\n"
             "bad = [m for m in sys.modules if m == 'sfm_tpu' or "
             "m.startswith('sfm_tpu.') or m.startswith('jax')]\n"
             "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

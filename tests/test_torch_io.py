@@ -335,3 +335,17 @@ def test_runtime_builds_from_the_ports_own_sources():
         with open(path, "rb") as f, \
                 open(os.path.join(jax_native, src.name), "rb") as g:
             assert f.read() == g.read(), src.name
+
+
+def test_lazy_top_level_names_as_in_jax():
+    """``sfm_tpu_torch.PointCloud`` and ``.SfMEngine`` are lazy top-level
+    names, as ``sfm_tpu``'s are; any other name raises."""
+    import sfm_tpu
+    import sfm_tpu_torch
+    from sfm_tpu_torch.engine import SfMEngine
+    from sfm_tpu_torch.io import PointCloud as PC
+    assert sfm_tpu_torch.PointCloud is PC
+    assert sfm_tpu_torch.SfMEngine is SfMEngine
+    assert sfm_tpu.PointCloud.__name__ == PC.__name__
+    with pytest.raises(AttributeError):
+        sfm_tpu_torch.NoSuchName

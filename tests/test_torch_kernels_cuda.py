@@ -976,3 +976,113 @@ def test_shard_batched_state_keeps_a_card_fleet_on_the_card(cuda):
                                        device="cpu").status.is_cuda
     finally:
         dist.destroy_process_group()
+
+
+def _schur_diag_problem(dev):
+    """A problem with dead slots (w == 0) and frozen cameras, its
+    landmark-major table built on ``dev``."""
+    from sfm_tpu_torch.ba.large import ObsTables
+    rng = np.random.default_rng(12)
+    truth, init, obs = ba_scene(rng, 10, 400, 6, noise_px=0.5,
+                                outlier_p=0.03, dead_p=0.3, min_obs=3)
+    cam_free = np.ones(10, bool)
+    cam_free[[0, 1, 6]] = False
+    for k in ("rv", "tv"):
+        init[k][~cam_free] = truth[k][~cam_free]
+    o = Observations(to_t(obs[0]).long().to(dev), to_t(obs[1]).long().to(dev),
+                     to_t(obs[2]).to(dev), to_t(obs[3]).to(dev))
+    lm_cam, lm_uv, lm_w, _ = build_lm_tables_device(o, 400, 6)
+    return ((to_t(TEST_K).to(dev), to_t(init["rv"]).to(dev),
+             to_t(init["tv"]).to(dev), to_t(init["X"]).to(dev),
+             ObsTables(lm_cam, lm_uv, lm_w)),
+            dict(cam_free=to_t(cam_free).to(dev),
+                 lm_free=torch.ones(400, dtype=torch.bool, device=dev),
+                 iterations=10, cg_iterations=25, huber_delta=2.0, tol=0.0,
+                 precond="schur_diag"))
+
+
+def test_run_large_ba_schur_diag_on_the_card_matches_the_cpu(cuda):
+    """precond="schur_diag" on the card (K2, K3 and K3-gather; the
+    preconditioner's per-camera sums in camera_slots' order) against its
+    CPU run (the plain versions) on a table with dead slots and frozen
+    cameras: costs within rel 1e-4, the same accepted steps, poses within
+    1e-4, the frozen cameras unmoved."""
+    from sfm_tpu_torch.ba.large import run_large_ba
+    out = {}
+    for dev in ("cpu", cuda):
+        args, kw = _schur_diag_problem(dev)
+        native.reset_launch_counts()
+        out[str(dev)] = run_large_ba(*args, **kw)
+        if dev == cuda:
+            assert all(native.LAUNCHES[k] > 0 for k in (
+                "ba_linearize", "schur_apply", "schur_gather"))
+    a, b = out["cuda"], out["cpu"]
+    assert float(b[3].final_cost) < 0.5 * float(b[3].initial_cost)
+    for k in ("initial_cost", "final_cost"):
+        np.testing.assert_allclose(float(getattr(a[3], k)),
+                                   float(getattr(b[3], k)), rtol=1e-4)
+    assert int(a[3].accepted) == int(b[3].accepted)
+    np.testing.assert_allclose(a[0].cpu().numpy(), b[0].numpy(), atol=1e-4)
+    np.testing.assert_allclose(a[1].cpu().numpy(), b[1].numpy(), atol=1e-4)
+    args, _ = _schur_diag_problem("cpu")
+    frozen = ~_schur_diag_problem("cpu")[1]["cam_free"]
+    assert torch.equal(a[1].cpu()[frozen], args[2][frozen])
+
+
+def test_run_large_ba_schur_diag_repeats_bit_for_bit(cuda):
+    from sfm_tpu_torch.ba.large import run_large_ba
+    args, kw = _schur_diag_problem(cuda)
+    runs = [run_large_ba(*args, **kw) for _ in range(2)]
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(a, b)
+    for k in ("initial_cost", "final_cost", "lam", "accepted"):
+        assert torch.equal(getattr(runs[0][3], k), getattr(runs[1][3], k))
+
+
+def test_distorted_flagship_make_frame_on_the_card_matches_the_cpu(cuda):
+    """make_frame at FLAGSHIP's size (480x640, 512 keypoints) on a
+    ray-traced frame through chip_smoke's lens, on the card (K5 among
+    torch ops) against the CPU's plain path: the keypoints at the same
+    positions (at most 1% of them apart: FAST and the pyramid compare
+    floats that either library may round last), undistorted positions
+    within 1e-4 px, descriptors within tests/test_torch_features.py's
+    bit-flip bound (measured: all 512 keypoints at the same positions, no
+    descriptor bit apart; NVIDIA H100 80GB HBM3, 700 W)."""
+    from sfm_tpu_torch.config import FLAGSHIP, SfMConfig
+    from sfm_tpu_torch.engine import SfMEngine
+    from sfm_tpu_torch.engine.state import make_frame
+    from sfm_tpu_torch.raytrace import RayScene, orbit_arc_trajectory
+    K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
+                 np.float32)
+    dist = [-0.22, 0.06, 0.0009, -0.0007, 0.0]
+    rv, tv = orbit_arc_trajectory(60, radius=5.5, arc=0.7)
+    img = RayScene(seed=11, n_boxes=24).render(
+        K, rv[20], tv[20], 480, 640, d=dist, noise_std=2.5, frame_no=20)
+    cfg = SfMConfig(**FLAGSHIP)
+    fr = {}
+    for dev in ("cpu", cuda):
+        eng = SfMEngine(K, (480, 640), dist, cfg, device=dev)
+        native.reset_launch_counts()
+        fr[str(dev)] = make_frame(cfg, eng.cam, to_t(img).to(dev),
+                                  torch.tensor(20, dtype=torch.int32,
+                                               device=dev)).map(
+            lambda x: x.cpu())
+        if dev == cuda:
+            assert native.LAUNCHES["patch_sampler"] == 1
+    a, b = fr["cuda"], fr["cpu"]
+    va, vb = a.kp_valid.numpy(), b.kp_valid.numpy()
+    assert vb.sum() > 400
+    pa = {tuple(x): i for i, x in enumerate(a.xy_dist.numpy()[va])}
+    ia = np.nonzero(va)[0]
+    same = [(ia[pa[tuple(x)]], j) for j, x in zip(np.nonzero(vb)[0],
+                                                   b.xy_dist.numpy()[vb])
+            if tuple(x) in pa]
+    print(f"{len(same)} of {vb.sum()} keypoints at the same position")
+    assert len(same) >= 0.99 * vb.sum() and abs(va.sum() - vb.sum()) \
+        <= 0.01 * vb.sum()
+    i, j = map(np.array, zip(*same))
+    np.testing.assert_allclose(a.xy.numpy()[i], b.xy.numpy()[j], atol=1e-4)
+    bits = lambda d: np.unpackbits(d.view(np.uint8), axis=-1)  # noqa: E731
+    rate = float((bits(a.desc.numpy()[i]) != bits(b.desc.numpy()[j])).mean())
+    print(f"descriptor bits apart: {rate:.2e}")
+    assert rate < 0.002

@@ -40,6 +40,29 @@ def test_rowsum_equals_index_add(shape):
     assert empty.shape == (n,) + shape and not empty.any()
 
 
+
+@pytest.mark.parametrize("shape", [(), (6, 6)])
+def test_rowsum_from_csr_equals_the_sorted_index(shape):
+    """A RowSum over a CSR index (``large.camera_slots``' offsets and
+    order, the dead slots past the last offset) equals the RowSum that
+    sorts the index itself, bit for bit, and the dead rows reach no
+    target."""
+    from sfm_tpu_torch.ba.large import camera_slots
+    rng = np.random.default_rng(3 + len(shape))
+    L, kmax, C = 300, 5, 11
+    lm_cam = to_t(rng.integers(0, C - 2, (L, kmax)).astype(np.int32))
+    lm_w = to_t((rng.uniform(size=(L, kmax)) > 0.3).astype(np.float32))
+    src = to_t(rng.normal(size=(L * kmax,) + shape).astype(np.float32))
+    cs = camera_slots(lm_cam, lm_w, C)
+    ours = RowSum.from_csr(cs.offsets, cs.slots)(src)
+    key = torch.where(lm_w.reshape(-1) != 0, lm_cam.reshape(-1).long(), C)
+    assert torch.equal(ours, RowSum(key, C + 1)(src)[:C])
+    live = (lm_w.reshape(-1) != 0)
+    ref = torch.zeros((C,) + shape).index_add_(
+        0, lm_cam.reshape(-1).long()[live], src[live])
+    assert torch.equal(ours, ref)
+    assert not ours[C - 2:].any()       # cameras with no slot
+
 def _problem(seed=0):
     rng = np.random.default_rng(seed)
     _, init, obs = ba_scene(rng, 6, 120, 4, noise_px=0.7, outlier_p=0.05,
