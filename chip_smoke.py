@@ -6,16 +6,40 @@
     python3 chip_smoke.py --fleet N     # the fleet phase alone, N runs
     python3 chip_smoke.py --dist        # the dist phase alone
     python3 chip_smoke.py --raytrace    # the raytrace and anchor phases
+    python3 chip_smoke.py --sanitize-target   # the kernel driver alone
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
 2. builds the CUDA kernels from sfm_tpu_torch/csrc (one nvcc per source,
    all in parallel, sm_90a);
+2a. "sanitize": the kernel driver (``sanitize_target``) launches every
+   __global__ function of csrc/ through the port's wrappers, at the main
+   path's shapes (K1's five and the fleet's 64x512x512, K5 on a frame's
+   canvas and on 4 canvases, K2 / K3 in every mode at C=32 L=2048 and
+   C=512 L=16384, kmax 8) and at edge shapes (K1: 37x53, 1x1, B=3 with
+   an expanded operand, every source or target invalid, centres far out,
+   NaN and inf, the cells route at 37x53 and at 2048 targets; K5: centres
+   within 16 px of every border and past it, a batch of 3 x 37 on
+   97x211; K2 / K3: C=1, L=37, kmax 1, 16 and 40, empty rows, camera
+   indices -1 and C + 3), each call twice inside guard bands of two
+   poisons: every input copied into the middle of a buffer of poison and
+   every torch.empty of the wrappers made so (``guarded_run``); a band
+   or an input written, the two runs unequal, or a result unequal to the
+   plain version fails; K1's wrapper must refuse an empty batch; every
+   function must be launched.  Then compute-sanitizer (found as nvcc is,
+   its absence raises) runs ``chip_smoke.py --sanitize-target`` under
+   memcheck, racecheck, initcheck and synccheck with the port's
+   functions only and PyTorch's caching allocator off, each exiting 0
+   with 0 errors and every function launched; a card the tool answers
+   "Device not supported" for is recorded, and the tools are not run;
 3. drives the main path: SfMEngine.add_frames on the synthetic 80-frame
    480x640 strafe scan (the JAX package's bench.py workload) under the
    FLAGSHIP configuration (the large implicit-Schur BA solver), on the card,
    and checks tracking, keyframes, trajectory accuracy (sim(3) keyframe ATE
-   against the ground-truth poses), finite landmarks, and that K1, K5, K2,
+   against the ground-truth poses), finite landmarks, no NaN in any
+   floating tensor of the state (every slot) or the metrics after any
+   chunk (``feed_chunks``, off the clock; every add_frames scan of
+   ``run_slice`` and the raytrace scan walk so), and that K1, K5, K2,
    K3 and K3-gather were launched by the run (K1's launches also by call
    site);
 4. the same scan under SLICE (the dense BA solver), with its own checks,
@@ -209,7 +233,12 @@ runs one FLAGSHIP single scan (for the rate beside the fleet's) and the
 fleet phase N times, likewise.  ``--dist`` runs the dist phase and its
 kernel rows (the pod's two shapes, the sharded fleet's batch) alone, and
 ``--raytrace`` the raytrace phase (with its acceptance step) and the
-anchor phase alone.
+anchor phase alone.  ``--sanitize-target`` runs only the kernel driver
+and prints its launches by function as JSON (no card line): the program
+to run under compute-sanitizer, e.g. ``PYTORCH_NO_CUDA_MEMORY_CACHING=1
+compute-sanitizer --tool memcheck --error-exitcode 99 --kernel-name
+'regex=dense_kernel|cells_kernel|init_keys|epilogue_kernel|patch_kernel|landmark_phase|camera_phase'
+python3 chip_smoke.py --sanitize-target``.
 Any failed check raises, and the script exits non-zero."""
 
 import contextlib
@@ -1014,6 +1043,22 @@ def ba_kernel_rows(torch, label, args, cs, timed_shape,
     return rows
 
 
+def ba_kernel_args(torch, pr, huber, mask):
+    """K2's arguments on a ``ba_problem`` (Huber delta ``huber``; with
+    ``mask`` every 7th landmark frozen too, camera 0 being frozen
+    already) and the table's camera_slots."""
+    from sfm_tpu_torch.ba.large import camera_slots
+    from sfm_tpu_torch.geometry.rotations import exp_so3
+    tb = pr["tables"]
+    lm_free = pr["lm_free"].float()
+    if mask:
+        lm_free[::7] = 0.0
+    args = (pr["K"], exp_so3(pr["rv"]).contiguous(), pr["tv"], pr["X"],
+            lm_free, pr["cam_free"].float(), tb.lm_cam, tb.lm_uv, tb.lm_w,
+            huber)
+    return args, camera_slots(tb.lm_cam, tb.lm_w, pr["cam_free"].shape[0])
+
+
 def check_ba_kernels(torch, dev):
     """K2 and the three K3 modes against their plain versions at the
     flagship's mapping-BA shape (32 cameras, 2048 landmark rows of which
@@ -1021,9 +1066,6 @@ def check_ba_kernels(torch, dev):
     Huber 2.0, free masks), at bench_ba.py's (1000, 100k, 6) and, for
     equality only, at bench_ba's layout with 4096 cameras (above the camera
     caps of the earlier shared-memory design), with ``ba_kernel_rows``."""
-    from sfm_tpu_torch.ba.large import camera_slots
-    from sfm_tpu_torch.geometry.rotations import exp_so3
-
     # (label, C, L, kmax, Huber delta, landmark mask, problem options,
     # timed)
     shapes = (("flagship C=32 L=2048 kmax=8", 32, 2048, 8, 2.0, True,
@@ -1037,14 +1079,7 @@ def check_ba_kernels(torch, dev):
                            "schur_scatter")}
     for label, C, L, kmax, huber, mask, extra, timed_shape in shapes:
         pr = ba_problem(torch, dev, C, L, kmax, **extra)
-        tb = pr["tables"]
-        cs = camera_slots(tb.lm_cam, tb.lm_w, C)
-        lm_free = pr["lm_free"].float()
-        if mask:   # camera 0 is frozen already; every 7th landmark too
-            lm_free[::7] = 0.0
-        args = (pr["K"], exp_so3(pr["rv"]).contiguous(), pr["tv"], pr["X"],
-                lm_free, pr["cam_free"].float(), tb.lm_cam, tb.lm_uv,
-                tb.lm_w, huber)
+        args, cs = ba_kernel_args(torch, pr, huber, mask)
         log(f"[BA kernels] {label}: {pr['n_obs']} observations")
         for name, row in ba_kernel_rows(torch, label, args, cs,
                                         timed_shape).items():
@@ -1263,6 +1298,34 @@ def k1_by_site(torch, calls, scan="FLAGSHIP"):
     return out
 
 
+def feed_chunks(torch, dev, eng, staged, label):
+    """add_frames over the staged chunks, each on the clock up to a
+    synchronise; after each, off the clock, ``nonfinite_fields`` of the
+    engine's whole state (every slot, valid or not) and of the chunk's
+    metrics: a NaN fails.  Returns (metrics, the first chunk's seconds,
+    the others' seconds, {field: chunks holding an infinity}, chunks
+    walked)."""
+    from sfm_tpu_torch.engine.state import nonfinite_fields
+    metrics, secs, infinite = [], [], {}
+    for i, ch in enumerate(staged):
+        t0 = time.perf_counter()
+        m = eng.add_frames(ch)
+        sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        metrics += m
+        bad = nonfinite_fields(eng.state, "state")
+        bad.update(nonfinite_fields(m, "metrics"))
+        nan = {k: c for k, c in bad.items() if c[0]}
+        if nan:
+            raise AssertionError(f"[{label}] NaN after chunk {i} (frames up "
+                                 f"to {len(metrics) - 1}): {nan}")
+        for k, c in bad.items():
+            infinite[k] = infinite.get(k, 0) + 1
+    if infinite:
+        log(f"[{label}] +-inf (no NaN) in {infinite} (field: chunks)")
+    return metrics, secs[0], sum(secs[1:]), infinite, len(staged)
+
+
 def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
               k1_calls=None, keep=False):
     """add_frames over the bench.py scan in chunks of keyframe_time_lag
@@ -1295,15 +1358,8 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
     k1_sites, restore = count_k1_sites(native, k1_calls)
     try:
         native.reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = eng.add_frames(staged[0])
-        sync()
-        first_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for ch in staged[1:]:
-            metrics += eng.add_frames(ch)
-        sync()
-        steady_s = time.perf_counter() - t0
+        metrics, first_s, steady_s, infinite, walked = feed_chunks(
+            torch, dev, eng, staged, label)
         launches = dict(native.LAUNCHES)
     finally:
         restore()
@@ -1329,7 +1385,8 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
         f"{k1_sites}")
     log(f"[{label}] first chunk {first_s:.3f} s; amortised {fps:.3f} "
         f"frames/s over frames {chunk}-{n_frames - 1} (tracking + deferred "
-        f"mapping)")
+        f"mapping); no NaN in the state or the metrics after any of the "
+        f"{walked} chunks")
 
     # the mapping pass alone, re-run on the final map's newest keyframe
     slot = int(np.argmax(np.where(eng.state.kfs.valid.cpu().numpy(),
@@ -1367,7 +1424,8 @@ def run_slice(torch, dev, cfg, label, kernels, K=K, n_frames=N_FRAMES,
                ate_pct=100 * ate / extent, keyframes=n_kf,
                running=running, bootstrap_frame=boot,
                ba_dropped_obs=dropped, digest=digest,
-               statuses="".join(map(str, status.tolist())))
+               statuses="".join(map(str, status.tolist())),
+               nan_free_chunks=walked, infinite_fields=infinite)
     if keep:
         out["keep"] = eng
     return out
@@ -4113,14 +4171,9 @@ def run_raytrace(torch, dev, cfg, kernels=MAIN_PATH, K=K,
               for s in range(0, n_frames - n_frames % T, T)]
     sync(torch, dev)
     native.reset_launch_counts()
-    t0 = time.perf_counter()
-    metrics = eng.add_frames(staged[0])
-    sync(torch, dev)
-    first_s = time.perf_counter() - t0
-    for ch in staged[1:]:
-        metrics += eng.add_frames(ch)
-    sync(torch, dev)
-    scan_s = time.perf_counter() - t0
+    metrics, first_s, rest_s, infinite, walked = feed_chunks(
+        torch, dev, eng, staged, "raytrace")
+    scan_s = first_s + rest_s
     launches = dict(native.LAUNCHES)
     status = np.array([int(m["status"]) for m in metrics])
     running = float((status == 1).mean())
@@ -4135,7 +4188,9 @@ def run_raytrace(torch, dev, cfg, kernels=MAIN_PATH, K=K,
         f"{len(est_c)} keyframes; {n_lms} landmarks; ATE {ate:.5f} over "
         f"{extent:.3f} m ({100 * ate / extent:.3f}%); Kopt fx {kopt[0, 0]:.3f} "
         f"cx {kopt[0, 2]:.3f} (K: {K[0, 0]}, {K[0, 2]}); first chunk "
-        f"{first_s:.3f} s, then {fps:.3f} frames/s; launches {launches}")
+        f"{first_s:.3f} s, then {fps:.3f} frames/s; launches {launches}; "
+        f"no NaN in the state or the metrics after any of the {walked} "
+        f"chunks")
     checks = {
         "RUNNING >= 90%": running >= RAYTRACE_RUNNING,
         f"keyframes >= {RAYTRACE_KEYFRAMES}": len(est_c) >= RAYTRACE_KEYFRAMES,
@@ -4151,7 +4206,8 @@ def run_raytrace(torch, dev, cfg, kernels=MAIN_PATH, K=K,
     out = dict(render_s=render_s, first_chunk_s=first_s, scan_s=scan_s,
                fps=fps, running=running, keyframes=len(est_c),
                landmarks=n_lms, ate_pct=100 * ate / extent, extent=extent,
-               launches=launches)
+               launches=launches, nan_free_chunks=walked,
+               infinite_fields=infinite)
     if acceptance:
         out["acceptance"], checks = run_acceptance(
             torch, dev, frames, scene, rvecs, tvecs, K, cli_args)
@@ -4438,6 +4494,507 @@ def raytrace_and_anchor(torch, dev, bench_once=None):
     return raytrace, anchor
 
 
+# ---------------------------------------------------------------------------
+# "sanitize": every __global__ function of csrc/ at the main path's shapes
+# and at edge shapes, against its plain version inside guard bands; and
+# compute-sanitizer over the same driver where the card allows it
+# ---------------------------------------------------------------------------
+
+# the __global__ functions of sfm_tpu_torch/csrc/ (schur.cu's two are
+# templates over its three modes)
+SANITIZE_FUNCTIONS = ("match.cu dense_kernel", "match.cu cells_kernel",
+                      "match.cu init_keys", "match.cu epilogue_kernel",
+                      "patches.cu patch_kernel",
+                      "linearize.cu landmark_phase",
+                      "linearize.cu camera_phase",
+                      "schur.cu landmark_phase", "schur.cu camera_phase")
+# compute-sanitizer's tools, and its kernel filter: the port's functions
+# only (their mangled names hold these), none of PyTorch's
+SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
+SANITIZER_FILTER = ("regex=dense_kernel|cells_kernel|init_keys|"
+                    "epilogue_kernel|patch_kernel|landmark_phase|"
+                    "camera_phase")
+SANITIZER_TIMEOUT = 600.0
+# bytes of poison on each side of every tensor a guarded call reads or
+# the wrappers allocate, and the two poisons (0xFF: NaN in f32, -1 in
+# int32; 0x7F: 3.4e38 in f32, a camera index far out of range)
+GUARD_BYTES = 4096
+POISONS = (0xFF, 0x7F)
+K1_FUNCTION = {"cells": "match.cu cells_kernel",
+               "dense_int": "match.cu dense_kernel"}
+
+
+class _Bands:
+    """Guard bands for one guarded call: every tensor is the middle of a
+    buffer whose GUARD_BYTES on each side hold ``poison`` (and whose
+    middle does too, until written)."""
+
+    def __init__(self, torch, poison):
+        self.torch, self.poison, self.bufs = torch, poison, []
+        self.real_empty = torch.empty
+
+    def alloc(self, n, dtype, device):
+        torch = self.torch
+        es = torch.empty((), dtype=dtype).element_size()
+        pad = GUARD_BYTES // es
+        buf = self.real_empty((n + 2 * pad,), dtype=dtype, device=device)
+        buf.view(torch.uint8).fill_(self.poison)
+        self.bufs.append((buf, pad, n))
+        return buf[pad:pad + n]
+
+    def copy(self, t):
+        """``t`` copied into a band (an expanded batch axis stays
+        expanded)."""
+        if t.dim() and t.shape[0] > 1 and t.stride(0) == 0:
+            return self.copy(t[:1]).expand(t.shape)
+        return self.alloc(t.numel(), t.dtype, t.device).view(
+            t.shape).copy_(t)
+
+    def empty(self, *size, dtype=None, device=None, **kw):
+        """``torch.empty`` with a device named, in a band (the wrappers
+        allocate their outputs and scratch so); else the real one."""
+        torch = self.torch
+        if device is None or kw:
+            return self.real_empty(*size, dtype=dtype, device=device, **kw)
+        shape = tuple(size[0]) if len(size) == 1 \
+            and not isinstance(size[0], int) else size
+        return self.alloc(int(np.prod(shape, dtype=np.int64)),
+                          dtype or torch.get_default_dtype(),
+                          device).view(shape)
+
+    def broken(self):
+        """The bands whose poison a launch overwrote."""
+        bad = []
+        for i, (buf, pad, n) in enumerate(self.bufs):
+            u8 = buf.view(self.torch.uint8)
+            es = buf.element_size()
+            for side, part in (("before", u8[:pad * es]),
+                               ("after", u8[(pad + n) * es:])):
+                if bool((part != self.poison).any()):
+                    bad.append(f"buffer {i} ({n} x {buf.dtype}) {side}")
+        return bad
+
+
+def _guard_tree(bands, x):
+    torch = bands.torch
+    if torch.is_tensor(x):
+        return bands.copy(x)
+    if isinstance(x, tuple):
+        out = [_guard_tree(bands, v) for v in x]
+        return type(x)(*out) if hasattr(x, "_fields") else tuple(out)
+    return x
+
+
+def same_bits(torch, a, b):
+    """a equals b entry by entry, NaN where b has NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def guarded_run(torch, fn, inputs, poison):
+    """``fn(*inputs)`` with every tensor of ``inputs`` copied into a guard
+    band of ``poison`` and every ``torch.empty`` given a device (the
+    wrappers' outputs and scratch) made the same way and filled with it.
+    Raises if a launch wrote a band's poison or an input; returns the
+    outputs, copied out of their bands."""
+    bands = _Bands(torch, poison)
+    guarded = _guard_tree(bands, tuple(inputs))
+    torch.empty = bands.empty
+    try:
+        out = fn(*guarded)
+    finally:
+        torch.empty = bands.real_empty
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    bad = bands.broken()
+    bad += [f"input {i}" for i, (a, b) in enumerate(zip(guarded, inputs))
+            if torch.is_tensor(a) and not same_bits(torch, a, b)]
+    if bad:
+        raise AssertionError(f"written outside the outputs: {bad}")
+    out = out if isinstance(out, tuple) else (out,)
+    return tuple(o.clone() for o in out)
+
+
+def _sub(label, inputs, kernel, plain, functions, exact):
+    return dict(label=label, inputs=inputs, kernel=kernel, plain=plain,
+                functions=functions, exact=exact)
+
+
+def _k1_sub(torch, label, args):
+    from sfm_tpu_torch.features import match_pallas as mp
+    B, Ns = args[0].shape[:2]
+    route = mp.k1_route(args[7], B, Ns, args[3].shape[1])
+    return [_sub(
+        f"K1 {label} [{route}]", args,
+        lambda *a: mp.hamming_match_kernel(*a) + mp.match_result_kernel(*a),
+        lambda *a: mp.hamming_match_plain(*a) + mp.match_result_plain(*a),
+        (K1_FUNCTION[route], "match.cu init_keys", "match.cu epilogue_kernel"),
+        True)]
+
+
+def k1_main_case(case):
+    def build(torch, dev):
+        args, _ = k1_inputs(torch, np.random.default_rng(5), case, dev)
+        return _k1_sub(torch, case[0], args)
+    return build
+
+
+def k1_edge_case(B, Ns, Nt, rmax, src_live=0.95, tgt_live=0.95,
+                 expand=False, wild=False, seed=7):
+    """K1 at an edge shape: every source (target) valid with probability
+    src_live (tgt_live); ``expand``: the targets' descriptors one row
+    expanded over the batch (stride 0); ``wild``: three sources centred
+    far outside any image, on NaN and on inf."""
+    def build(torch, dev):
+        g = np.random.default_rng(seed)
+        a = list(match_case(torch, g, B, Ns, Nt, True, dev))
+        a[2] = torch.as_tensor(g.uniform(0, 1, (B, Ns)) < src_live,
+                               device=dev)
+        a[5] = torch.as_tensor(g.uniform(0, 1, (B, Nt)) < tgt_live,
+                               device=dev)
+        if expand:
+            a[3] = a[3][:1].expand(B, -1, -1)
+        if wild:
+            far = torch.tensor([[3e9, -3e9], [float("nan"), 5.0],
+                                [float("inf"), 5.0]], device=dev)
+            a[1][:, :3] = far
+            a[2][:, :3] = True
+        r2 = float(np.float32(rmax * rmax))
+        label = (f"{B}x{Ns}x{Nt} r{rmax:g}"
+                 + (" expanded" if expand else "") + (" wild" if wild else "")
+                 + (f" src {src_live:g}" if src_live < 0.95 else "")
+                 + (f" tgt {tgt_live:g}" if tgt_live < 0.95 else ""))
+        return _k1_sub(torch, label, tuple(a) + (0.0, r2, 90.0, 0.8))
+    return build
+
+
+def _k5_sub(label, canvas, cx, cy):
+    from sfm_tpu_torch.features import patches_pallas as pp
+    return [_sub(f"K5 {label}", (canvas, cx, cy),
+                 pp.extract_patches_kernel, pp.extract_patches_plain,
+                 ("patches.cu patch_kernel",), True)]
+
+
+def k5_main(torch, dev):
+    canvas, cx, cy = k5_inputs(torch, dev)
+    return _k5_sub(f"{len(cx)} kp on {canvas.shape[0]}x{canvas.shape[1]}",
+                   canvas, cx, cy)
+
+
+def k5_batch(torch, dev, B=4, N=512, Hc=480, Wc=1200):
+    g = np.random.default_rng(8)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    return _k5_sub(f"batch {B} x {N} kp on {Hc}x{Wc}",
+                   t(g.uniform(0, 255, (B, Hc, Wc))),
+                   t(g.uniform(20, Wc - 20, (B, N))),
+                   t(g.uniform(20, Hc - 20, (B, N))))
+
+
+def k5_borders(torch, dev, Hc=480, Wc=1200):
+    """Centres on a grid within 16 px of every border, on it, and past it
+    (the engine's centres are finite: detection's integer pixels plus a
+    clamped subpixel step, so no non-finite case)."""
+    g = np.random.default_rng(9)
+    xs = np.array([-40, -16.5, -0.5, 0.0, 0.3, 15.7, 16.0, Wc / 2 + 0.25,
+                   Wc - 16.2, Wc - 1.0, Wc - 0.4, Wc + 0.5, Wc + 40])
+    ys = np.array([-40, -16.5, -0.5, 0.0, 0.3, 15.7, 16.0, Hc / 2 + 0.75,
+                   Hc - 16.2, Hc - 1.0, Hc - 0.4, Hc + 0.5, Hc + 40])
+    cx, cy = np.meshgrid(xs, ys)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    return _k5_sub(f"{cx.size} centres at the borders of {Hc}x{Wc}",
+                   t(g.uniform(0, 255, (Hc, Wc))), t(cx.ravel()),
+                   t(cy.ravel()))
+
+
+def _ba_subs(torch, label, args, cs):
+    """K2 on ``args`` (K2's arguments) and ``cs`` (their camera_slots);
+    then K3 on the plain K2's W, V (damped at 1e-3) and g_lm with a random
+    x, in every mode and with g or x left out, as the large solver calls
+    it."""
+    from sfm_tpu_torch.ba import linearize_pallas as lp
+    from sfm_tpu_torch.ba import schur_pallas as sp
+    C, L = args[1].shape[0], args[3].shape[0]
+    lm_cam = args[6]
+    W, V, g_lm = lp.ba_linearize_plain(*args)[:3]
+    Vinv = lp.damped_vinv(V, 1e-3)
+    x = torch.as_tensor(np.random.default_rng(1).normal(0, 1, (C, 6)),
+                        dtype=torch.float32, device=W.device)
+    z = sp.schur_gather_plain(lm_cam, W, Vinv, g_lm, x)
+    k2 = ("linearize.cu landmark_phase",) * (L > 0) \
+        + ("linearize.cu camera_phase",)
+    k3 = ("schur.cu landmark_phase",) * (L > 0)
+    both = k3 + ("schur.cu camera_phase",)
+    full = lambda g, x: (  # noqa: E731
+        lambda lc, W, Vi, *a: sp.schur_kernel(
+            "full", lc, W, Vi, a[0] if g else None, a[-2] if x else None,
+            n_cams=C, slots=a[-1]),
+        lambda lc, W, Vi, *a: sp.schur_apply_fused_plain(
+            lc, W, Vi, a[0] if g else None, a[-2] if x else None, C))
+    return [
+        _sub(f"K2 {label}", tuple(args) + (cs,),
+             lambda *a: lp.ba_linearize_kernel(*a[:-1], slots=a[-1]),
+             lambda *a: lp.ba_linearize_plain(*a[:-1]), k2, False),
+        _sub(f"K3 full {label}", (lm_cam, W, Vinv, g_lm, x, cs),
+             *full(True, True), both, False),
+        _sub(f"K3 full, x None {label}", (lm_cam, W, Vinv, g_lm, None, cs),
+             *full(True, False), both, False),
+        _sub(f"K3 full, g None {label}", (lm_cam, W, Vinv, None, x, cs),
+             *full(False, True), both, False),
+        _sub(f"K3 gather {label}", (lm_cam, W, Vinv, g_lm, x),
+             lambda *a: sp.schur_kernel("gather", *a),
+             sp.schur_gather_plain, k3, False),
+        _sub(f"K3 scatter {label}", (lm_cam, W, z, cs),
+             lambda lc, W, z, s: sp.schur_kernel("scatter", lc, W, z=z,
+                                                 n_cams=C, slots=s),
+             lambda lc, W, z, s: sp.schur_scatter_plain(lc, W, z, C),
+             both, False)]
+
+
+def ba_main_case(C, L, kmax):
+    """K2 / K3 on ba_problem at a main-path BA shape (the flagship's
+    mapping BA, the long scan's), as check_ba_kernels makes it."""
+    def build(torch, dev):
+        pr = ba_problem(torch, dev, C, L, kmax, min_obs=2, noise_px=1.0,
+                        outlier_p=0.05, spread=0.2, live=0.2)
+        return _ba_subs(torch, f"C={C} L={L} kmax={kmax}",
+                        *ba_kernel_args(torch, pr, 2.0, True))
+    return build
+
+
+def ba_edge_case(C, L, kmax, seed=3):
+    """K2 / K3 on a random table at an edge shape: every 10th landmark row
+    empty, 5% of the other slots empty, 4% of the slots with camera index
+    -1 and 4% with C + 3 (live: kernels and plain versions clamp them),
+    5% outliers, camera 0 and every 7th landmark frozen."""
+    def build(torch, dev):
+        from sfm_tpu_torch.ba.large import camera_slots
+        from sfm_tpu_torch.geometry.rotations import exp_so3
+        g = np.random.default_rng(seed)
+        cam_t = np.stack([np.linspace(-1, 1, C), np.zeros(C), np.zeros(C)],
+                         1)
+        X = np.stack([g.uniform(-2, 2, L), g.uniform(-1, 1, L),
+                      g.uniform(4, 8, L)], 1)
+        lm_cam = g.integers(0, C, (L, kmax))
+        u = g.uniform(0, 1, (L, kmax))
+        lm_cam[u < 0.04] = -1
+        lm_cam[(u >= 0.04) & (u < 0.08)] = C + 3
+        w = g.uniform(0.5, 1.5, (L, kmax)) * (g.uniform(0, 1, (L, kmax))
+                                              >= 0.05)
+        w[::10] = 0.0
+        p = X[:, None, :] + cam_t[np.clip(lm_cam, 0, C - 1)]
+        uv = p[..., :2] / p[..., 2:] * 250.0 + [160.0, 120.0] \
+            + g.normal(0, 1.0, (L, kmax, 2))
+        uv[g.uniform(0, 1, (L, kmax)) < 0.05] += 30.0
+        cam_free = np.ones(C, np.float32)
+        cam_free[0] = 0.0
+        lm_free = np.ones(L, np.float32)
+        lm_free[::7] = 0.0
+        f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
+                                      device=dev)
+        lc = torch.as_tensor(lm_cam, dtype=torch.int32, device=dev)
+        args = (f(K), exp_so3(f(g.normal(0, 0.02, (C, 3)))).contiguous(),
+                f(cam_t), f(X), f(lm_free), f(cam_free), lc, f(uv), f(w), 2.0)
+        return _ba_subs(torch, f"C={C} L={L} kmax={kmax} edge", args,
+                        camera_slots(lc, args[8], C))
+    return build
+
+
+# name -> builder(torch, dev) of the driver's calls: the main path's
+# shapes first, then the edges
+SANITIZE_CASES = {
+    **{f"K1 {c[0]}": k1_main_case(c) for c in K1_CASES},
+    "K1 fleet 64x512x512": k1_main_case(
+        ("64x512x512", 64, 512, 512, False, 1.5, 40.0)),
+    "K5 main": k5_main,
+    "K5 batch": k5_batch,
+    "BA flagship": ba_main_case(32, 2048, 8),
+    "BA longscan mapping": ba_main_case(512, 16384, 8),
+    "K1 37x53": k1_edge_case(1, 37, 53, 40.0),
+    "K1 1x1": k1_edge_case(1, 1, 1, 1e9),
+    "K1 B=3 expanded": k1_edge_case(3, 37, 53, 40.0, expand=True),
+    "K1 sources invalid": k1_edge_case(2, 37, 53, 40.0, src_live=0.0),
+    "K1 targets invalid": k1_edge_case(2, 37, 53, 40.0, tgt_live=0.0),
+    "K1 wild centres": k1_edge_case(2, 37, 53, 40.0, wild=True),
+    "K1 cells 2200x37x53": k1_edge_case(2200, 37, 53, 7.0, wild=True),
+    "K1 cells Nt=2048": k1_edge_case(3, 700, 2048, 7.0),
+    "K5 borders": k5_borders,
+    "K5 batch 3x37": lambda torch, dev: k5_batch(torch, dev, 3, 37, 97, 211),
+    "BA C=1": ba_edge_case(1, 37, 3),
+    "BA L=37": ba_edge_case(5, 37, 8),
+    "BA kmax=1": ba_edge_case(7, 301, 1),
+    "BA kmax=16": ba_edge_case(7, 301, 16),
+    "BA kmax=40": ba_edge_case(4, 130, 40),
+}
+
+
+def sanitize_check(torch, sub):
+    """One sub-case: the kernel in two guarded runs (POISONS), equal bit
+    for bit (an output left unwritten, or a read of unwritten scratch,
+    would carry the poison), and equal to the plain version: K1 and K5 bit
+    for bit; K2 and K3, whose edge tables (a landmark seen once: V
+    singular but for the damping) leave the f32 plain version itself up
+    to ~2e-4 of the largest entry from float64, no farther from the plain
+    version run in float64 than twice the f32 plain version, plus 1e-6,
+    entry by entry over the largest entry (ba_kernel_rows' witness, in
+    the max norm).  Returns the wrapper calls made."""
+    from sfm_tpu_torch import native
+    n0 = sum(native.LAUNCHES.values())
+    runs = [guarded_run(torch, sub["kernel"], sub["inputs"], p)
+            for p in POISONS]
+    calls = sum(native.LAUNCHES.values()) - n0
+    for a, b in zip(*runs):
+        if not same_bits(torch, a, b):
+            raise AssertionError(f"{sub['label']}: the two poisons give "
+                                 f"different outputs")
+    ref = sub["plain"](*sub["inputs"])
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    if sub["exact"]:
+        for i, (a, b) in enumerate(zip(runs[0], ref)):
+            if not same_bits(torch, a, b):
+                raise AssertionError(f"{sub['label']}: output {i} differs "
+                                     f"from the plain version")
+        return calls
+    ref64 = sub["plain"](*_to_f64(torch, *sub["inputs"]))
+    ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+    for i, (a, b, c) in enumerate(zip(runs[0], ref, ref64)):
+        scale = max(float(c.abs().max()), 1e-30) if c.numel() else 1.0
+        far_k = float((a.double() - c).abs().max()) / scale if c.numel() \
+            else 0.0
+        far_p = float((b.double() - c).abs().max()) / scale if c.numel() \
+            else 0.0
+        if not far_k <= 2 * far_p + 1e-6:
+            raise AssertionError(
+                f"{sub['label']}: output {i} is {far_k:.2e} of its largest "
+                f"entry from the plain version run in float64 (the f32 "
+                f"plain version {far_p:.2e})")
+    return calls
+
+
+def k1_refusals(torch, dev):
+    """K1's wrapper refuses an empty batch (B, Ns or Nt of 0: the kernels
+    would index row -1) with ValueError and launches nothing."""
+    from sfm_tpu_torch import native
+    from sfm_tpu_torch.features import match_pallas as mp
+    out = {}
+    for B, Ns, Nt in ((1, 0, 53), (1, 37, 0), (0, 37, 53)):
+        z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
+            s, dtype=dt, device=dev)
+        args = (z(B, Ns, 16, dt=torch.int32), z(B, Ns, 2),
+                z(B, Ns, dt=torch.bool), z(B, Nt, 16, dt=torch.int32),
+                z(B, Nt, 2), z(B, Nt, dt=torch.bool), 0.0, 1600.0, 90.0,
+                0.8)
+        n0 = native.LAUNCHES["hamming_match"]
+        try:
+            mp.match_result_kernel(*args)
+            refused = False
+        except ValueError:
+            refused = True
+        out[f"{B}x{Ns}x{Nt}"] = refused and \
+            native.LAUNCHES["hamming_match"] == n0
+    return out
+
+
+def sanitize_target(torch, dev, names=None):
+    """The kernel driver (``python3 chip_smoke.py --sanitize-target``):
+    every case of SANITIZE_CASES (or of ``names``) through
+    ``sanitize_check``, and K1's refusals.  Returns the launches of each
+    __global__ function (from the wrappers' counts, with K1's route and
+    K3's mode: the counts are per wrapper), the cases and the checks;
+    raises on the first disagreement."""
+    from sfm_tpu_torch import native
+    native.reset_launch_counts()
+    functions = dict.fromkeys(SANITIZE_FUNCTIONS, 0)
+    labels = []
+    for name in names or SANITIZE_CASES:
+        for sub in SANITIZE_CASES[name](torch, dev):
+            calls = sanitize_check(torch, sub)
+            for f in sub["functions"]:
+                functions[f] += calls
+            labels.append(sub["label"])
+    refused = k1_refusals(torch, dev)
+    if not all(refused.values()):
+        raise AssertionError(f"K1 launched an empty batch: {refused}")
+    return dict(functions=functions, launches=dict(native.LAUNCHES),
+                cases=labels, k1_refused=refused)
+
+
+def _summary_errors(text):
+    """The error count of a compute-sanitizer report (None without a
+    summary line)."""
+    import re
+    found = re.findall(r"(?:ERROR SUMMARY|RACECHECK SUMMARY): (\d+)", text)
+    return int(found[-1]) if found else None
+
+
+def run_sanitize(torch, dev):
+    """The "sanitize" phase: ``sanitize_target`` in this process, then
+    compute-sanitizer (found as nvcc is; its absence raises) over
+    ``python3 chip_smoke.py --sanitize-target`` with each tool, the port's
+    functions only and PyTorch's caching allocator off (or memcheck would
+    not see a read past a tensor's end, nor initcheck reused memory).  A
+    run must exit 0 with 0 errors and launch every function.  A card that
+    the sanitizer does not support ("Device not supported": it then breaks
+    the program's CUDA calls) is recorded, and the tools are not run."""
+    import os
+    from sfm_tpu_torch import native
+    t0 = time.perf_counter()
+    out = sanitize_target(torch, dev)
+    driver_s = time.perf_counter() - t0
+    idle = [f for f, n in out["functions"].items() if n == 0]
+    log(f"[sanitize] guarded driver: {len(out['cases'])} calls, each "
+        f"kernel twice in {GUARD_BYTES}-byte guard bands of poison "
+        f"{[hex(p) for p in POISONS]} against its plain version, "
+        f"{driver_s:.1f} s; launches by function {out['functions']}; K1 "
+        f"refuses empty batches {out['k1_refused']}")
+    run_checks("sanitize", {
+        "every __global__ function launched by the guarded driver":
+            not idle})
+    tool = native.cuda_tool("compute-sanitizer")
+    version = subprocess.run([tool, "--version"], capture_output=True,
+                             text=True).stdout.strip().splitlines()[-1]
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    runs = {}
+    for name in SANITIZER_TOOLS:
+        cmd = [tool, "--tool", name, "--error-exitcode", "99",
+               "--kernel-name", SANITIZER_FILTER, "--show-backtrace", "no",
+               "--print-limit", "20", sys.executable,
+               os.path.abspath(__file__), "--sanitize-target"]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           timeout=SANITIZER_TIMEOUT)
+        secs = time.perf_counter() - t0
+        text = p.stdout + p.stderr
+        errors = _summary_errors(text)
+        if "Device not supported" in text:
+            runs[name] = dict(status="device not supported", seconds=secs,
+                              returncode=p.returncode, errors=errors)
+            log(f"[sanitize] {name}: compute-sanitizer {version} ({tool}) "
+                f"answers 'Device not supported' on this card "
+                f"({torch.cuda.get_device_name(0)}) in {secs:.1f} s (exit "
+                f"{p.returncode}); the four tools are not run here")
+            break
+        child = [json.loads(ln) for ln in p.stdout.splitlines()
+                 if ln.startswith('{"sanitize_target"')]
+        launched = child[-1]["sanitize_target"]["functions"] if child \
+            else {}
+        runs[name] = dict(status="run", seconds=secs,
+                          returncode=p.returncode, errors=errors,
+                          functions=launched)
+        log(f"[sanitize] {name}: {secs:.1f} s, exit {p.returncode}, "
+            f"{errors} errors, launches {launched}")
+        run_checks(f"sanitize {name}", {
+            "exit 0": p.returncode == 0, "0 errors": errors == 0,
+            "every function launched": bool(launched)
+            and all(n > 0 for n in launched.values())})
+    return dict(driver=out, driver_s=driver_s, compute_sanitizer=tool,
+                version=version, tools=runs)
+
+
 def ring_runs(torch, n):
     """The ring phase alone, ``n`` times on one card: each run's checks and
     numbers as a JSON line (its K1 calls are not replayed), then whether
@@ -4509,6 +5066,9 @@ def main(argv):
         f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     native.library()
+    if "--sanitize-target" in argv:
+        print(json.dumps({"sanitize_target": sanitize_target(torch, dev)}))
+        return 0
     log(f"kernel build: {native.BUILD_INFO['seconds']:.2f} s "
         f"({native.BUILD_INFO['path']})")
     log(native.BUILD_INFO.get("ptxas", ""))
@@ -4535,6 +5095,7 @@ def main(argv):
         print(json.dumps(raytrace_and_anchor(torch, dev), default=str))
         print(card[0])
         return 0
+    sanitize = run_sanitize(torch, dev)
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
                          MAIN_PATH, k1_calls=k1_calls, keep=True)
@@ -4762,7 +5323,7 @@ def main(argv):
         "pipeline": pipeline, "serve": serve, "helpers": helpers,
         "dense_rerun_digest_equal": dense_again["digest"] == dense["digest"],
         "longscan": longscan, "ring": ring, "fleet": fleet, "dist": dist,
-        "raytrace": raytrace, "anchor": anchor,
+        "raytrace": raytrace, "anchor": anchor, "sanitize": sanitize,
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))

@@ -258,6 +258,43 @@ def _to_numpy(obj):
     return obj.detach().cpu().numpy()
 
 
+def nonfinite_fields(tree, prefix: str = "") -> dict:
+    """{path: (NaN, +inf, -inf counts)} of every floating leaf of ``tree``
+    that holds a non-finite entry, every entry counted (invalid slots and
+    padding too).  ``tree``: nested state dataclasses, dicts, lists or
+    tuples of tensors, numpy arrays or numbers (a state, a metrics dict).
+    One host read per device."""
+    leaves = []
+    _floating_leaves(tree, prefix, leaves)
+    by_dev = {}
+    for path, t in leaves:
+        by_dev.setdefault(t.device, []).append((path, t))
+    out = {}
+    for items in by_dev.values():
+        counts = torch.stack([torch.stack([
+            torch.isnan(t).sum(), torch.isposinf(t).sum(),
+            torch.isneginf(t).sum()]) for _, t in items]).tolist()
+        out.update((path, tuple(c)) for (path, _), c in zip(items, counts)
+                   if any(c))
+    return out
+
+
+def _floating_leaves(obj, path, out):
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            _floating_leaves(getattr(obj, f.name), f"{path}.{f.name}", out)
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            _floating_leaves(v, f"{path}.{k}", out)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _floating_leaves(v, f"{path}[{i}]", out)
+    elif isinstance(obj, (torch.Tensor, np.ndarray, float, np.floating)):
+        t = torch.as_tensor(obj)
+        if t.is_floating_point():
+            out.append((path.lstrip("."), t))
+
+
 def state_to_numpy(state: SfMState) -> dict:
     """Nested dict of numpy arrays with the JAX package's field names and
     dtypes (descriptors as uint32)."""

@@ -116,9 +116,14 @@ def _header(path):
     return n, "property uchar red" in head
 
 
-def read_ply(path: str, native: bool = True):
-    """Read a PLY written by this module.  Returns (xyz, colors or None)."""
+def read_ply(path: str, max_points: int = 10_000_000, native: bool = True):
+    """Read a PLY written by this module.  Returns (xyz, colors or None).
+    A file of more than ``max_points`` points is refused (IOError), as the
+    C++ runtime refuses it; no more than the header's count is read."""
     n, has_c = _header(path)
+    if n > max_points:
+        raise IOError(f"PLY read failed: {path} holds {n} points, more "
+                      f"than max_points={max_points}")
     if native:
         xyz = np.zeros((n, 3), np.float32)
         rgb = np.zeros((n, 3), np.uint8)

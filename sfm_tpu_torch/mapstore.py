@@ -68,6 +68,16 @@ class Frame(_Tree):
     tvec: torch.Tensor      # [3]
     frame_no: torch.Tensor  # [] int32
 
+    @property
+    def matched(self) -> torch.Tensor:
+        """[N] bool: the keypoint is linked to a landmark."""
+        return self.landmark >= 0
+
+    @property
+    def n_matched(self) -> torch.Tensor:
+        """[] int64: valid keypoints linked to a landmark."""
+        return torch.sum(self.matched & self.kp_valid)
+
 
 def empty_frame(n_kp: int, desc_words: int, device) -> Frame:
     f32, i32 = torch.float32, torch.int32

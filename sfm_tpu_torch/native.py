@@ -75,15 +75,18 @@ def count_launch(name: str, stream: ctypes.c_void_p) -> None:
         STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """The path of the CUDA toolkit's program ``name`` (``nvcc``,
+    ``compute-sanitizer``): on PATH, else in ``$CUDA_HOME/bin``; raises
+    when it is in neither."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        return os.path.join(CUDA_HOME, "bin", name)
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed (set "
+                       f"CUDA_HOME or put {name} on PATH)")
 
 
 def build() -> Path:
@@ -101,7 +104,7 @@ def build() -> Path:
         BUILD_INFO.update(seconds=0.0, cached=True, path=str(out_dir))
         return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     t0 = time.perf_counter()
     procs = []
     for s in sources:

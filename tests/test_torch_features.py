@@ -19,12 +19,13 @@ from torch_port_util import texture, to_np, to_t
 
 from sfm_tpu.features.patches_pallas import extract_patches_pallas
 from sfm_tpu.synthetic import SpriteScene, strafe_trajectory
-from sfm_tpu_torch.features import descriptor, detect
+from sfm_tpu_torch.features import descriptor
 from sfm_tpu_torch.features.patches_pallas import extract_patches_plain
 
-# the package re-exports functions under these module names
+# the packages re-export functions under these module names
 jdesc = importlib.import_module("sfm_tpu.features.descriptor")
 jdet = importlib.import_module("sfm_tpu.features.detect")
+detect = importlib.import_module("sfm_tpu_torch.features.detect")
 
 K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], np.float32)
 # measured on this frame on a CPU: 9.5e-5 (25 of 262144 bits, in 23 of 512

@@ -5,6 +5,7 @@ TestMultiScanDriver, at the same small size (120x160, 3 scans)."""
 
 import copy
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from sfm_tpu_torch.engine.state import (LOST, RUNNING, CameraParams,
                                         init_state, make_frame, make_frames,
                                         stack_states, state_to_numpy,
                                         write_scan)
-from sfm_tpu_torch.features import descriptor, detect
+from sfm_tpu_torch.features import descriptor
 from sfm_tpu_torch.features.patches_pallas import extract_patches_plain
 from sfm_tpu_torch.mapstore import (_set_drop, add_descriptors, add_views,
                                     increment_age, insert_keyframe)
@@ -28,6 +29,9 @@ from sfm_tpu_torch.parallel import (MultiScanDriver, build_batched_step,
                                     scan_generator)
 from sfm_tpu_torch.ransac import ransac_pnp, sample_masked
 from sfm_tpu_torch.synthetic import SpriteScene, strafe_trajectory
+
+# the module: the package re-exports the function ``detect`` under its name
+detect = importlib.import_module("sfm_tpu_torch.features.detect")
 
 CFG = SfMConfig(max_keypoints=96, max_keyframes=4, max_landmarks=256,
                 image_height=120, image_width=160, pyramid_levels=2,

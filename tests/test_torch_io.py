@@ -86,6 +86,29 @@ def test_ply_bytes_match_jax(tmp_path, monkeypatch, native, colour):
             assert c is None and cj is None
 
 
+@pytest.mark.parametrize("extra", [0, 1, -1])
+def test_read_ply_max_points_matches_jax(tmp_path, monkeypatch, extra):
+    """read_ply(max_points=) as the JAX package's reader through the C++
+    runtime: the whole cloud when it fits, IOError when it holds more."""
+    xyz, rgb = _cloud(np.random.default_rng(2), 40)
+    path = tmp_path / "c.ply"
+    _jax_write(path, xyz, rgb, True, monkeypatch)
+    cap = len(xyz) + extra
+    if extra < 0:
+        with pytest.raises(IOError):
+            jply.read_ply(str(path), max_points=cap)
+    else:
+        xj, cj = jply.read_ply(str(path), max_points=cap)
+    for nat in (True, False):
+        if extra < 0:
+            with pytest.raises(IOError):
+                read_ply(str(path), max_points=cap, native=nat)
+            continue
+        x, c = read_ply(str(path), max_points=cap, native=nat)
+        np.testing.assert_array_equal(x, xj)
+        np.testing.assert_array_equal(c, cj)
+
+
 def test_cloud_ops_match_jax(monkeypatch):
     """add_points, center, scale and normalize: each version of the port
     against the JAX package's same version (the C++ runtime sums in

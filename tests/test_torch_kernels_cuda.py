@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (TEST_K, ba_scene, far_ba_problem,
+from torch_port_util import (TEST_K, ba_scene, chip_smoke, far_ba_problem,
                              gradient_distances, match_case, noisy_copies,
                              rand_desc, to_t)
 
@@ -1086,3 +1086,24 @@ def test_distorted_flagship_make_frame_on_the_card_matches_the_cpu(cuda):
     rate = float((bits(a.desc.numpy()[i]) != bits(b.desc.numpy()[j])).mean())
     print(f"descriptor bits apart: {rate:.2e}")
     assert rate < 0.002
+
+
+# chip_smoke.py's kernel driver (the "sanitize" phase, ``--sanitize-target``)
+SMOKE = chip_smoke()
+
+
+@pytest.mark.parametrize("name", list(SMOKE.SANITIZE_CASES))
+def test_sanitize_case(cuda, name):
+    """A case of the kernel driver, at a main-path or an edge shape: each
+    kernel twice in guard bands of two poisons, equal to its plain version
+    (K1 and K5 bit for bit, K2 / K3 within BA_REL_TOL of the largest
+    entry), the two runs equal bit for bit, no band or input written."""
+    calls = sum(SMOKE.sanitize_check(torch, sub)
+                for sub in SMOKE.SANITIZE_CASES[name](torch, cuda))
+    assert calls > 0
+
+
+def test_k1_refuses_empty_batches(cuda):
+    """An empty batch (Ns, Nt or B of 0) raises ValueError before any
+    launch: the kernels would index row -1."""
+    assert all(SMOKE.k1_refusals(torch, cuda).values())

@@ -73,6 +73,20 @@ def stores():
     return rng, lj, lt, kj, kt
 
 
+def test_frame_matched(stores):
+    """Frame.matched and Frame.n_matched (CFrame::_status) per keyframe,
+    and for the whole store; neither is a field that ``map`` carries."""
+    _, _, _, kj, kt = stores
+    _eq(kt.frames.matched, kj.frames.matched)
+    for slot in range(KF):
+        fj, ft = jms.Frame(*(x[slot] for x in kj.frames)), kt.frame(slot)
+        _eq(ft.matched, fj.matched)
+        assert int(ft.n_matched) == int(fj.n_matched)
+    assert [f.name for f in dataclasses.fields(ms.Frame)] == list(
+        jms.Frame._fields)
+    assert ms.tree_map(lambda x: x, kt.frames).matched.shape == (KF, N)
+
+
 def test_allocate_slots():
     rng = np.random.default_rng(1)
     free = rng.uniform(0, 1, 40) < 0.3

@@ -333,17 +333,21 @@ def spawn_ranks(fn, world: int, args, tmp_path, timeout: float = 180.0,
     chip_smoke.py's ``spawn_world``.  A rank that raises fails the whole
     spawn; one still running after ``timeout`` seconds is killed, and the
     spawn raises TimeoutError."""
+    chip_smoke().spawn_world(fn, world, args,
+                             str(tmp_path / "rendezvous") if init else None,
+                             device, timeout)
+
+
+def chip_smoke():
+    """chip_smoke.py, imported by its module name (the spawned ranks find
+    its functions by that name)."""
     import importlib
     import os
     import sys
-    # the ranks find chip_smoke's spawned function by module name
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     if root not in sys.path:
         sys.path.insert(0, root)
-    smoke = importlib.import_module("chip_smoke")
-    smoke.spawn_world(fn, world, args,
-                      str(tmp_path / "rendezvous") if init else None,
-                      device, timeout)
+    return importlib.import_module("chip_smoke")
 
 
 def load_ranks(out_dir, name: str, world: int):
