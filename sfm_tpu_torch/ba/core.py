@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..geometry.rotations import exp_so3
+from ..utils.profiling import count, to_host
 from ..utils.rowsum import RowSum
 from .residuals import (Observations, apply_pose_update, huber_weights,
                         residuals_and_jacobians, robust_cost)
@@ -154,6 +155,7 @@ def _lm_loop(assemble, step, rvec, tvec, xyz, cam_free_f, lm_free_f, *,
     relative (one host read per iteration)."""
     blocks, cost = assemble(rvec, tvec, xyz)
     cost0 = cost
+    count("implicit_sync")  # lam's blocking copy to the card
     lam = torch.tensor(lam0, dtype=torch.float32, device=xyz.device)
     accepted = torch.zeros((), dtype=torch.int32, device=xyz.device)
     for _ in range(iterations):
@@ -177,7 +179,7 @@ def _lm_loop(assemble, step, rvec, tvec, xyz, cam_free_f, lm_free_f, *,
                           torch.clamp(lam * lam_up, max=1e6))
         cost = torch.where(ok, new_cost, cost)
         accepted = accepted + ok.to(torch.int32)
-        if bool(done):
+        if to_host(bool, done):
             break
     return rvec, tvec, xyz, BAStats(cost0, cost, lam, accepted)
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..geometry.rotations import exp_so3
+from ..utils.profiling import count, span, to_host
 from ..utils.rowsum import RowSum
 from .core import BAStats, _damp, _inv
 from .linearize_pallas import ba_linearize, damped_vinv
@@ -215,72 +216,80 @@ def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
     every shard reads the same accept flag.  ``precond``: the PCG's
     block-Jacobi blocks, "jacobi_u" (the damped U blocks) or "schur_diag"
     (the exact diagonal blocks of the Schur complement)."""
-    C = rvec.shape[0]
-    lm_cam = lm_cam.to(torch.int32).contiguous()
-    lm_uv = lm_uv.contiguous()
-    lm_w = lm_w.contiguous()
-    K = K.contiguous()
-    eye6 = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
-    cslots = camera_slots(lm_cam, lm_w, C)
-    if precond == "schur_diag":
-        # per-camera sums of the slots' products in cslots' fixed order,
-        # so that reruns on the card repeat bit for bit
-        cam_sum = RowSum.from_csr(cslots.offsets, cslots.slots)
-
-    def linearize(rvec, tvec, xyz):
-        W, V, g_lm, U, g_cam, cost = ba_linearize(
-            K, exp_so3(rvec).contiguous(), tvec.contiguous(),
-            xyz.contiguous(), lm_free_f, cam_free_f, lm_cam, lm_uv, lm_w,
-            huber_delta, slots=cslots)
-        U, g_cam, cost = reduce(U, g_cam, cost)
-        return (W, V, g_lm, U, g_cam), cost
-
-    blocks, cost = linearize(rvec, tvec, xyz)
-    cost0 = cost
-    lam, accepted = lam0, 0
-    for _ in range(iterations):
-        W, V, g_lm, U, g_cam = blocks
-        Ud = _damp(U, lam)
-        vinv = damped_vinv(V, lam)
-        op = SchurOperator(W, lm_cam, vinv, cslots)
-
-        def matvec(x):
-            return (Ud @ x[:, :, None])[..., 0] - reduce(op.w_vinv_wt_x(x))[0]
-
-        rhs = g_cam - reduce(op.w_vinv_g(g_lm, C))[0]
+    with span("ba.solve"):
+        C = rvec.shape[0]
+        lm_cam = lm_cam.to(torch.int32).contiguous()
+        lm_uv = lm_uv.contiguous()
+        lm_w = lm_w.contiguous()
+        K = K.contiguous()
+        eye6 = torch.eye(6, dtype=xyz.dtype, device=xyz.device)
+        cslots = camera_slots(lm_cam, lm_w, C)
         if precond == "schur_diag":
-            # block-Jacobi on the exact diagonal of S = damp(U) - W V^-1 W^T:
-            # S_cc = damp(U_cc) - sum_j W_cj Vinv_j W_cj^T over camera c's
-            # slots (a dead slot is in none, a frozen camera's W is 0)
-            P = reduce(_schur_coupling_diag(W, vinv, cam_sum))[0]
-            M_inv = _inv(Ud - P + 1e-6 * eye6)
-        else:
-            # block-Jacobi preconditioner: damped U blocks; _damp's 1e-6
-            # floor and this one are both kept, as in the JAX package
-            M_inv = _inv(Ud + 1e-6 * eye6)
-        d_cam = _pcg(matvec, M_inv, rhs, cg_iterations)
-        d_cam = d_cam * cam_free_f[:, None]
-        d_lm = op.back_substitute(g_lm, d_cam) * lm_free_f[:, None]
-        rv_new, tv_new = apply_pose_update(rvec, tvec, d_cam[:, :3],
-                                           d_cam[:, 3:])
-        xyz_new = xyz + d_lm
-        blocks_new, new_cost = linearize(rv_new, tv_new, xyz_new)
-        ok = (new_cost < cost) & torch.isfinite(new_cost)
-        done = ok & (cost - new_cost < tol * torch.clamp(cost, min=1.0))
-        ok, done = torch.stack([ok, done]).tolist()
-        if ok:
-            rvec, tvec, xyz, blocks, cost = (rv_new, tv_new, xyz_new,
-                                             blocks_new, new_cost)
-            lam = max(lam / lam_down, 1e-9)
-            accepted += 1
-        else:
-            lam = min(lam * lam_up, 1e6)
-        if done:
-            break
-    dev = xyz.device
-    return rvec, tvec, xyz, BAStats(
-        cost0, cost, torch.tensor(lam, dtype=torch.float32, device=dev),
-        torch.tensor(accepted, dtype=torch.int32, device=dev))
+            # per-camera sums of the slots' products in cslots' fixed
+            # order, so that reruns on the card repeat bit for bit
+            cam_sum = RowSum.from_csr(cslots.offsets, cslots.slots)
+
+        def linearize(rvec, tvec, xyz):
+            with span("ba.linearize"):
+                W, V, g_lm, U, g_cam, cost = ba_linearize(
+                    K, exp_so3(rvec).contiguous(), tvec.contiguous(),
+                    xyz.contiguous(), lm_free_f, cam_free_f, lm_cam, lm_uv,
+                    lm_w, huber_delta, slots=cslots)
+                U, g_cam, cost = reduce(U, g_cam, cost)
+            return (W, V, g_lm, U, g_cam), cost
+
+        blocks, cost = linearize(rvec, tvec, xyz)
+        cost0 = cost
+        lam, accepted = lam0, 0
+        for _ in range(iterations):
+            W, V, g_lm, U, g_cam = blocks
+            with span("ba.pcg"):
+                Ud = _damp(U, lam)
+                vinv = damped_vinv(V, lam)
+                op = SchurOperator(W, lm_cam, vinv, cslots)
+
+                def matvec(x):
+                    return (Ud @ x[:, :, None])[..., 0] \
+                        - reduce(op.w_vinv_wt_x(x))[0]
+
+                rhs = g_cam - reduce(op.w_vinv_g(g_lm, C))[0]
+                if precond == "schur_diag":
+                    # block-Jacobi on the exact diagonal of S = damp(U) -
+                    # W V^-1 W^T: S_cc = damp(U_cc) - sum_j W_cj Vinv_j
+                    # W_cj^T over camera c's slots (a dead slot is in none,
+                    # a frozen camera's W is 0)
+                    P = reduce(_schur_coupling_diag(W, vinv, cam_sum))[0]
+                    M_inv = _inv(Ud - P + 1e-6 * eye6)
+                else:
+                    # block-Jacobi preconditioner: damped U blocks; _damp's
+                    # 1e-6 floor and this one are both kept, as in the JAX
+                    # package
+                    M_inv = _inv(Ud + 1e-6 * eye6)
+                d_cam = _pcg(matvec, M_inv, rhs, cg_iterations)
+            with span("ba.update"):
+                d_cam = d_cam * cam_free_f[:, None]
+                d_lm = op.back_substitute(g_lm, d_cam) * lm_free_f[:, None]
+                rv_new, tv_new = apply_pose_update(rvec, tvec, d_cam[:, :3],
+                                                   d_cam[:, 3:])
+                xyz_new = xyz + d_lm
+            blocks_new, new_cost = linearize(rv_new, tv_new, xyz_new)
+            ok = (new_cost < cost) & torch.isfinite(new_cost)
+            done = ok & (cost - new_cost < tol * torch.clamp(cost, min=1.0))
+            ok, done = to_host(torch.Tensor.tolist, torch.stack([ok, done]))
+            if ok:
+                rvec, tvec, xyz, blocks, cost = (rv_new, tv_new, xyz_new,
+                                                 blocks_new, new_cost)
+                lam = max(lam / lam_down, 1e-9)
+                accepted += 1
+            else:
+                lam = min(lam * lam_up, 1e6)
+            if done:
+                break
+        dev = xyz.device
+        count("implicit_sync", 2)  # the two stats' blocking copies
+        return rvec, tvec, xyz, BAStats(
+            cost0, cost, torch.tensor(lam, dtype=torch.float32, device=dev),
+            torch.tensor(accepted, dtype=torch.int32, device=dev))
 
 
 def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *, cam_free,

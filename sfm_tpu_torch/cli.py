@@ -14,12 +14,13 @@ Usage:
     python -m sfm_tpu_torch.cli scan --input frames_dir/ --output cloud.ply \\
         --fx 525 --fy 525 --cx 320 --cy 240 [--dist k1 k2 p1 p2 k3] \\
         [--checkpoint state.npz] [--resume state.npz] [--metrics out.jsonl] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--trace DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -39,6 +40,7 @@ def cmd_scan(args) -> int:
     from .engine.state import resolve_device
     from .guidance import init_guidance, update_guidance
     from .io import PointCloud, load_state, open_source, save_state
+    from .utils import device_trace
 
     dev = resolve_device(args.device)
     src = open_source(args.input)
@@ -92,31 +94,36 @@ def cmd_scan(args) -> int:
             metrics_f.writelines(_json_line(mm) for mm in ms)
         n += real
 
-    if chunked:
-        for gray, _ in src:
-            buf.append(gray)
-            if args.max_frames and n + len(buf) >= args.max_frames:
-                del buf[args.max_frames - n:]   # honour --max-frames exactly
+    # --trace: the scan under torch.profiler, with the program's spans
+    traced = device_trace(args.trace) if args.trace \
+        else contextlib.nullcontext()
+    with traced:
+        if chunked:
+            for gray, _ in src:
+                buf.append(gray)
+                if args.max_frames and n + len(buf) >= args.max_frames:
+                    # honour --max-frames exactly
+                    del buf[args.max_frames - n:]
+                    break
+                if len(buf) == chunk_n:
+                    flush_chunk()
+            flush_chunk()
+        for gray, rgb in ([] if chunked else src):
+            m = eng.add_frame(gray)
+            if rgb is not None and int(m["status"]) == 1 and args.guidance:
+                gstate, gout = update_guidance(
+                    cfg, gstate, torch.as_tensor(rgb.astype(np.float32),
+                                                 device=dev),
+                    eng.state.lms.xyz, eng.state.lms.valid, eng.cam.Kopt,
+                    eng.state.prev.rvec, eng.state.prev.tvec)
+            if writer is not None:
+                writer.write(_overlay(eng, gray, m,
+                                      gout if args.guidance else None))
+            if metrics_f:
+                metrics_f.write(_json_line(m))
+            n += 1
+            if args.max_frames and n >= args.max_frames:
                 break
-            if len(buf) == chunk_n:
-                flush_chunk()
-        flush_chunk()
-    for gray, rgb in ([] if chunked else src):
-        m = eng.add_frame(gray)
-        if rgb is not None and int(m["status"]) == 1 and args.guidance:
-            gstate, gout = update_guidance(
-                cfg, gstate, torch.as_tensor(rgb.astype(np.float32),
-                                             device=dev),
-                eng.state.lms.xyz, eng.state.lms.valid, eng.cam.Kopt,
-                eng.state.prev.rvec, eng.state.prev.tvec)
-        if writer is not None:
-            writer.write(_overlay(eng, gray, m,
-                                  gout if args.guidance else None))
-        if metrics_f:
-            metrics_f.write(_json_line(m))
-        n += 1
-        if args.max_frames and n >= args.max_frames:
-            break
     if writer is not None:
         writer.close()
     dt = time.time() - t0
@@ -268,6 +275,11 @@ def main(argv=None) -> int:
     ps.add_argument("--device", default="cuda",
                     help="torch device of the engine (default cuda; no "
                          "fallback to the CPU)")
+    ps.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a Chrome trace of the scan into DIR: the "
+                         "host's operators, the card's kernels and the "
+                         "program's spans; print the card's idle seconds "
+                         "by span")
     ps.set_defaults(fn=cmd_scan)
 
     pi = sub.add_parser("info", help="inspect a PLY file")

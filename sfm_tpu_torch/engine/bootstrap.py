@@ -27,6 +27,7 @@ from ..mapstore import (_set_drop, add_descriptors, add_landmarks,
                         empty_keyframes, insert_keyframe,
                         representative_descriptors)
 from ..ransac import ransac_fundamental
+from ..utils.profiling import count, to_host
 from .state import RUNNING, CameraParams, SfMState, metrics, scalar
 
 
@@ -35,7 +36,7 @@ def bootstrap_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
     """One NOT_INITIALIZED-state step.  Returns (state, metrics).
     ``f_samples`` optionally injects the F-RANSAC sample indices."""
     dev = state.status.device
-    if int(state.frame_count) == 0:
+    if to_host(int, state.frame_count) == 0:
         kfs, _ = insert_keyframe(state.kfs, frame)
         st = state.replace(prev=frame, kfs=kfs)
         return st, metrics(frame, status=st.status,
@@ -61,7 +62,8 @@ def bootstrap_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
     s_f, f_inl = fundamental_score(fres.model, uv0, uv1, valid,
                                    th=cfg.f_inlier_threshold,
                                    th_score=cfg.h_inlier_threshold)
-    use_h = bool(s_h / torch.clamp(s_h + s_f, min=1e-6) > cfg.hf_model_ratio)
+    use_h = to_host(bool, s_h / torch.clamp(s_h + s_f, min=1e-6)
+                    > cfg.hf_model_ratio)
     Kopt = cam.Kopt
     if use_h:
         rvec, tvec, X, good, _ = recover_pose_from_homography(
@@ -83,8 +85,8 @@ def bootstrap_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
     enough = ((n_matches >= cfg.min_init_matches)
               & (n_keep >= cfg.min_init_matches)
               & (mean_err < cfg.max_reproj_error))
-    if not bool(enough):
-        fails = int(state.init_fail_count) + 1
+    if not to_host(bool, enough):
+        fails = to_host(int, state.init_fail_count) + 1
         if fails > cfg.keyframe_time_lag:
             kfs = empty_keyframes(cfg.max_keyframes, cfg.max_keypoints,
                                   cfg.desc_words, dev)
@@ -122,6 +124,7 @@ def bootstrap_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
     obs = observations_from_keyframes(kfs2, lms.valid)
     ba_xyz, ba_lm_free, ba_obs, inv = compact_ba_problem(
         lms.xyz, lms.valid, obs, cfg.max_keypoints)
+    count("implicit_sync")  # a blocking copy to the card
     cam_free2 = torch.tensor([False, True], device=dev)
     rv2, tv2, xyz_c, _ = run_ba(
         Kopt, kfs2.frames.rvec, kfs2.frames.tvec, ba_xyz, ba_obs,

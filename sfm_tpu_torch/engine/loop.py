@@ -35,6 +35,7 @@ from ..geometry.camera import depths, project
 from ..geometry.triangulate import projection_matrix
 from ..mapstore import _set_drop
 from ..ransac import ransac_pnp
+from ..utils.profiling import to_host
 from .state import CameraParams, SfMState
 
 
@@ -251,7 +252,9 @@ def retriangulate_landmarks(cfg: SfMConfig, cam: CameraParams,
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if torch.is_tensor(x):
+        return to_host(lambda t: t.detach().cpu().numpy(), x)
+    return np.asarray(x)
 
 
 def _start_frame(fns, valid, probe) -> int:

@@ -32,6 +32,7 @@ from ..mapstore import (_set_drop, add_descriptors, add_landmarks,
                         clear_links, cull_keyframes, cull_landmarks,
                         increment_age, kf_view_counts,
                         representative_descriptors)
+from ..utils.profiling import count, span
 from .state import CameraParams, SfMState
 
 
@@ -52,6 +53,8 @@ def _covisible_slots(kfs, new_slot, m: int, n_landmarks: int):
     (frame number breaks ties)."""
     fr = kfs.frames
     L = n_landmarks
+    if torch.is_tensor(new_slot):
+        count("implicit_sync")  # an index by a tensor on the card
     new_links = fr.landmark[new_slot]
     seen = _set_drop(torch.zeros(L, dtype=torch.bool, device=new_links.device),
                      torch.where(new_links >= 0, new_links, L), True)
@@ -140,6 +143,8 @@ def _triangulate_all_pairs(cfg: SfMConfig, cam: CameraParams,
     glob = (slots[:, None] * N + torch.arange(N, device=ok.device)).reshape(-1)
     landmark = _set_drop(fr.landmark.reshape(-1),
                          torch.where(ok, glob, Kn * N), ids).reshape(Kn, N)
+    if torch.is_tensor(new_slot):
+        count("implicit_sync", 2)  # a read and a store by a tensor index
     landmark[new_slot] = _set_drop(landmark[new_slot],
                                    torch.where(ok, tgt.reshape(-1), N), ids)
     return state.replace(kfs=kfs.replace(frames=fr.replace(landmark=landmark)),
@@ -212,77 +217,92 @@ def _reobserve_all(cfg: SfMConfig, cam: CameraParams, state: SfMState,
 
 def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                  new_slot) -> SfMState:
-    L = cfg.max_landmarks
-    state = _triangulate_all_pairs(cfg, cam, state, new_slot)
-    state = _reobserve_all(cfg, cam, state, new_slot)
+    with span("engine.mapping"):
+        L = cfg.max_landmarks
+        with span("mapping.triangulate"):
+            state = _triangulate_all_pairs(cfg, cam, state, new_slot)
+        with span("mapping.reobserve"):
+            state = _reobserve_all(cfg, cam, state, new_slot)
 
-    views = kf_view_counts(state.kfs, L)
-    lms, tomb = cull_landmarks(
-        state.lms, views, min_views=cfg.cull_min_views,
-        young_age=cfg.cull_young_kf_age, view_ratio=cfg.cull_view_ratio)
-    fr = state.kfs.frames
-    kfs = state.kfs.replace(frames=fr.replace(
-        landmark=clear_links(fr.landmark, tomb)))
-    prev = state.prev.replace(landmark=clear_links(state.prev.landmark, tomb))
-    kfs, _ = cull_keyframes(kfs, L, redundancy=cfg.kf_cull_redundancy,
-                            min_others=cfg.kf_cull_min_others)
+        with span("mapping.cull"):
+            views = kf_view_counts(state.kfs, L)
+            lms, tomb = cull_landmarks(
+                state.lms, views, min_views=cfg.cull_min_views,
+                young_age=cfg.cull_young_kf_age,
+                view_ratio=cfg.cull_view_ratio)
+            fr = state.kfs.frames
+            kfs = state.kfs.replace(frames=fr.replace(
+                landmark=clear_links(fr.landmark, tomb)))
+            prev = state.prev.replace(
+                landmark=clear_links(state.prev.landmark, tomb))
+            kfs, _ = cull_keyframes(kfs, L, redundancy=cfg.kf_cull_redundancy,
+                                    min_others=cfg.kf_cull_min_others)
 
-    # BA gauge-fixed on the oldest keyframe; with ba_local_window > 0 only
-    # the most recent poses are free, and the large solver also restricts
-    # its observations to the 2x window of recent keyframes (the free ones
-    # plus an anchor band of fixed older ones)
-    oldest = torch.argmin(torch.where(kfs.valid, kfs.frames.frame_no,
-                                      2 ** 30))
-    cam_free = kfs.valid.clone()
-    cam_free[oldest] = False
-    large = cfg.ba_solver == "large"
-    local_obs_window = large and cfg.ba_local_window > 0
-    if local_obs_window:
-        w_slots, w_ok = _recent_valid_slots(
-            kfs, min(2 * cfg.ba_local_window, cfg.max_keyframes))
-        obs = observations_from_keyframe_window(kfs, lms.valid, w_slots, w_ok)
-    else:
-        obs = observations_from_keyframes(kfs, lms.valid)
-    if cfg.ba_local_window > 0:
-        recent, recent_ok = _recent_valid_slots(
-            kfs, min(cfg.ba_local_window, cfg.max_keyframes))
-        in_window = _set_drop(torch.zeros_like(kfs.valid),
-                              torch.where(recent_ok, recent,
-                                          cfg.max_keyframes), True)
-        cam_free = cam_free & in_window
-    # with the local observation window only the landmarks it observes
-    # enter the problem (and its compaction)
-    ba_valid = lms.valid
-    if local_obs_window:
-        ba_valid = lms.valid & _set_drop(
-            torch.zeros_like(lms.valid),
-            torch.where(obs.w > 0, obs.lm_idx, lms.valid.shape[0]), True)
-    ba_xyz, ba_lm_free, ba_obs, inv = lms.xyz, ba_valid, obs, None
-    if 0 < cfg.ba_landmark_capacity < cfg.max_landmarks:
-        ba_xyz, ba_lm_free, ba_obs, inv = compact_ba_problem(
-            lms.xyz, ba_valid, obs, cfg.ba_landmark_capacity)
-    kw = dict(cam_free=cam_free, lm_free=ba_lm_free,
-              iterations=cfg.ba_iterations, lam0=cfg.ba_lambda_init,
-              lam_up=cfg.ba_lambda_up, lam_down=cfg.ba_lambda_down,
-              huber_delta=cfg.ba_huber_delta, tol=cfg.ba_tol)
-    if large:
-        lm_cam, lm_uv, lm_w, n_dropped = build_lm_tables_device(
-            ba_obs, ba_xyz.shape[0], kmax=cfg.ba_kmax)
-        state = state.replace(ba_dropped_obs=n_dropped)
-        rv, tv, xyz, _ = run_large_ba(
-            cam.Kopt, kfs.frames.rvec, kfs.frames.tvec, ba_xyz,
-            ObsTables(lm_cam, lm_uv, lm_w),
-            cg_iterations=cfg.ba_cg_iterations, **kw)
-    elif cfg.ba_solver == "cg":
-        rv, tv, xyz, _ = run_ba_cg(cam.Kopt, kfs.frames.rvec,
-                                   kfs.frames.tvec, ba_xyz, ba_obs,
-                                   cg_iterations=cfg.ba_cg_iterations, **kw)
-    else:
-        rv, tv, xyz, _ = run_ba(cam.Kopt, kfs.frames.rvec, kfs.frames.tvec,
-                                ba_xyz, ba_obs, **kw)
-    if inv is not None:
-        xyz = scatter_back_landmarks(lms.xyz, xyz, inv)
-    kfs = kfs.replace(frames=kfs.frames.replace(rvec=rv, tvec=tv))
-    lms = increment_age(lms.replace(xyz=xyz), 0, 1)
-    return state.replace(kfs=kfs, lms=lms, prev=prev,
-                         rep_desc=representative_descriptors(lms))
+        with span("mapping.tables"):
+            # BA gauge-fixed on the oldest keyframe; with ba_local_window > 0
+            # only the most recent poses are free, and the large solver also
+            # restricts its observations to the 2x window of recent
+            # keyframes (the free ones plus an anchor band of fixed older
+            # ones)
+            oldest = torch.argmin(torch.where(kfs.valid, kfs.frames.frame_no,
+                                              2 ** 30))
+            cam_free = kfs.valid.clone()
+            count("implicit_sync", 2)  # the index and the value, on the card
+            cam_free[oldest] = False
+            large = cfg.ba_solver == "large"
+            local_obs_window = large and cfg.ba_local_window > 0
+            if local_obs_window:
+                w_slots, w_ok = _recent_valid_slots(
+                    kfs, min(2 * cfg.ba_local_window, cfg.max_keyframes))
+                obs = observations_from_keyframe_window(kfs, lms.valid,
+                                                        w_slots, w_ok)
+            else:
+                obs = observations_from_keyframes(kfs, lms.valid)
+            if cfg.ba_local_window > 0:
+                recent, recent_ok = _recent_valid_slots(
+                    kfs, min(cfg.ba_local_window, cfg.max_keyframes))
+                in_window = _set_drop(torch.zeros_like(kfs.valid),
+                                      torch.where(recent_ok, recent,
+                                                  cfg.max_keyframes), True)
+                cam_free = cam_free & in_window
+            # with the local observation window only the landmarks it
+            # observes enter the problem (and its compaction)
+            ba_valid = lms.valid
+            if local_obs_window:
+                ba_valid = lms.valid & _set_drop(
+                    torch.zeros_like(lms.valid),
+                    torch.where(obs.w > 0, obs.lm_idx, lms.valid.shape[0]),
+                    True)
+            ba_xyz, ba_lm_free, ba_obs, inv = lms.xyz, ba_valid, obs, None
+            if 0 < cfg.ba_landmark_capacity < cfg.max_landmarks:
+                ba_xyz, ba_lm_free, ba_obs, inv = compact_ba_problem(
+                    lms.xyz, ba_valid, obs, cfg.ba_landmark_capacity)
+            if large:
+                lm_cam, lm_uv, lm_w, n_dropped = build_lm_tables_device(
+                    ba_obs, ba_xyz.shape[0], kmax=cfg.ba_kmax)
+                state = state.replace(ba_dropped_obs=n_dropped)
+        kw = dict(cam_free=cam_free, lm_free=ba_lm_free,
+                  iterations=cfg.ba_iterations, lam0=cfg.ba_lambda_init,
+                  lam_up=cfg.ba_lambda_up, lam_down=cfg.ba_lambda_down,
+                  huber_delta=cfg.ba_huber_delta, tol=cfg.ba_tol)
+        if large:
+            rv, tv, xyz, _ = run_large_ba(
+                cam.Kopt, kfs.frames.rvec, kfs.frames.tvec, ba_xyz,
+                ObsTables(lm_cam, lm_uv, lm_w),
+                cg_iterations=cfg.ba_cg_iterations, **kw)
+        elif cfg.ba_solver == "cg":
+            with span("ba.solve"):
+                rv, tv, xyz, _ = run_ba_cg(cam.Kopt, kfs.frames.rvec,
+                                           kfs.frames.tvec, ba_xyz, ba_obs,
+                                           cg_iterations=cfg.ba_cg_iterations,
+                                           **kw)
+        else:
+            with span("ba.solve"):
+                rv, tv, xyz, _ = run_ba(cam.Kopt, kfs.frames.rvec,
+                                        kfs.frames.tvec, ba_xyz, ba_obs, **kw)
+        if inv is not None:
+            xyz = scatter_back_landmarks(lms.xyz, xyz, inv)
+        kfs = kfs.replace(frames=kfs.frames.replace(rvec=rv, tvec=tv))
+        lms = increment_age(lms.replace(xyz=xyz), 0, 1)
+        return state.replace(kfs=kfs, lms=lms, prev=prev,
+                             rep_desc=representative_descriptors(lms))

@@ -11,6 +11,7 @@ from ..config import SfMConfig
 from ..features.match_pallas import match_features_pallas
 from ..mapstore import _set_drop
 from ..ransac import ransac_pnp
+from ..utils.profiling import to_host
 from .state import RUNNING, CameraParams, SfMState, metrics, scalar
 
 
@@ -37,7 +38,7 @@ def reloc_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
         solver=cfg.reloc_solver, samples=pnp_samples)
     common = dict(n_matches=res.mask.sum(), n_landmarks=lms.valid.sum(),
                   n_keyframes=state.kfs.valid.sum())
-    if not bool(pnp.ok):
+    if not to_host(bool, pnp.ok):
         return state, metrics(frame, status=state.status,
                               rvec=state.prev.rvec, tvec=state.prev.tvec,
                               **common)

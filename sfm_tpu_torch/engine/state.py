@@ -27,6 +27,7 @@ from ..guidance import GuidanceState, init_guidance
 from ..mapstore import (Frame, KeyframeStore, LandmarkStore, _Tree,
                         empty_frame, empty_keyframes, empty_landmarks,
                         tree_map)
+from ..utils.profiling import count
 
 NOT_INITIALIZED = 0
 RUNNING = 1
@@ -71,6 +72,7 @@ def resolve_device(device) -> torch.device:
 
 
 def scalar(v: int, device) -> torch.Tensor:
+    count("implicit_sync")  # a blocking copy to the card
     return torch.tensor(v, dtype=torch.int32, device=device)
 
 
@@ -152,6 +154,8 @@ def metrics(frame: Frame, **kw) -> dict:
     for name, dtype, shape in METRIC_FIELDS:
         v = kw.pop(name, None)
         full = lead + shape
+        if v is not None and not torch.is_tensor(v):
+            count("implicit_sync")  # a blocking copy to the card
         m[name] = (torch.zeros(full, dtype=dtype, device=dev) if v is None
                    else torch.as_tensor(v, device=dev).to(dtype)
                    .expand(full).clone())

@@ -25,6 +25,7 @@ from ..config import SfMConfig
 from ..geometry.camera import optimal_new_camera_matrix
 from ..guidance import update_guidance
 from ..mapstore import add_descriptors, landmark_colors
+from ..utils.profiling import count, span, to_host
 from .bootstrap import bootstrap_step
 from .global_ba import run_global_ba
 from .loop import LoopProbe, _host, _start_frame, build_loop_probe, close_loop
@@ -40,18 +41,22 @@ def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                defer_mapping: bool = False) -> Tuple[SfMState, dict]:
     """One frame: (state, image [H, W] grey or [H, W, 3] RGB) -> (state,
     metrics)."""
-    frame = make_frame(cfg, cam, image, state.frame_count)
-    grey = to_gray(image)
-    status = int(state.status)
+    with span("engine.make_frame"):
+        frame = make_frame(cfg, cam, image, state.frame_count)
+        grey = to_gray(image)
+    status = to_host(int, state.status)
     if status == NOT_INITIALIZED:
-        state, m = bootstrap_step(cfg, cam, state, frame, generator)
+        with span("engine.bootstrap"):
+            state, m = bootstrap_step(cfg, cam, state, frame, generator)
     elif status == RUNNING:
         mapping_fn = None if defer_mapping else (
             lambda st, slot: mapping_pass(cfg, cam, st, slot))
-        state, m = tracking_step(cfg, cam, state, frame, mapping_fn,
-                                 generator, image=grey)
+        with span("engine.track"):
+            state, m = tracking_step(cfg, cam, state, frame, mapping_fn,
+                                     generator, image=grey)
     else:
-        state, m = reloc_step(cfg, cam, state, frame, generator)
+        with span("engine.reloc"):
+            state, m = reloc_step(cfg, cam, state, frame, generator)
     if cfg.track_with_flow:
         # the branch adopted this frame as ``prev`` iff the frame numbers
         # match (bootstrap reference advance, tracking swap, recovery)
@@ -59,14 +64,17 @@ def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
         state = state.replace(
             prev_image=torch.where(took, grey, state.prev_image))
     if image.dim() == 3 and cfg.guidance_enabled and \
-            int(state.status) == RUNNING:
-        gs, out = update_guidance(cfg, state.guidance, image,
-                                  state.lms.xyz, state.lms.valid, cam.Kopt,
-                                  state.prev.rvec, state.prev.tvec)
-        state = state.replace(guidance=gs)
-        m.update(guid_centroid=out.centroid, guid_bbox_center=out.bbox_center,
-                 guid_bbox_axes=out.bbox_axes,
-                 guid_bbox_extent=out.bbox_extent)
+            to_host(int, state.status) == RUNNING:
+        with span("engine.guidance"):
+            gs, out = update_guidance(cfg, state.guidance, image,
+                                      state.lms.xyz, state.lms.valid,
+                                      cam.Kopt, state.prev.rvec,
+                                      state.prev.tvec)
+            state = state.replace(guidance=gs)
+            m.update(guid_centroid=out.centroid,
+                     guid_bbox_center=out.bbox_center,
+                     guid_bbox_axes=out.bbox_axes,
+                     guid_bbox_extent=out.bbox_extent)
     return state.replace(frame_count=state.frame_count + 1), m
 
 
@@ -74,7 +82,7 @@ def run_pending_mapping(cfg: SfMConfig, cam: CameraParams,
                         state: SfMState) -> SfMState:
     """The deferred mapping pass: runs on ``pending_map_slot`` (a no-op
     when none is pending) and clears it."""
-    slot = int(state.pending_map_slot)
+    slot = to_host(int, state.pending_map_slot)
     state = state.replace(pending_map_slot=scalar(-1, state.status.device))
     if slot < 0:
         return state
@@ -101,9 +109,14 @@ def _fetch(ms: list) -> list:
     device-to-host copy per field for the whole list."""
     if not ms:
         return []
-    stacked = {k: torch.stack([m[k] for m in ms]).cpu().numpy()
-               for k in ms[0]}
+    with span("engine.fetch"):
+        stacked = {k: to_host(_numpy, torch.stack([m[k] for m in ms]))
+                   for k in ms[0]}
     return [{k: v[i] for k, v in stacked.items()} for i in range(len(ms))]
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 class SfMEngine:
@@ -132,6 +145,7 @@ class SfMEngine:
         Kopt = optimal_new_camera_matrix(K, d, cfg.image_size) \
             if np.any(d != 0) else K
         as_t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        count("implicit_sync", 3)  # the camera's three copies to the card
         self.cam = CameraParams(K=as_t(K), d=as_t(d), Kopt=as_t(Kopt))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -166,24 +180,27 @@ class SfMEngine:
         """Probe the newest keyframe for a loop against old landmarks; on
         a detection, close the loop (engine/loop.py) and run global BA
         twice.  Returns True when a loop was closed."""
-        if self._loop_probe is None:
-            self._loop_probe = build_loop_probe(self.config, self.cam,
-                                                self.generator)
-        kfs = self.state.kfs
-        valid = kfs.valid.cpu().numpy()
-        if valid.sum() < 2:
-            return False
-        fns = kfs.frames.frame_no.cpu().numpy()
-        slot = int(np.argmax(np.where(valid, fns, -1)))
-        probe = LoopProbe(*map(_host, self._loop_probe(self.state, slot)))
-        if not bool(probe.ok):
-            return False
-        # each closure's span starts at its matched-landmark era; the
-        # scale is first-contact only (close_loop)
-        span = (_start_frame(fns, valid, probe), int(fns[slot]))
-        self.state = close_loop(self.config, self.cam, self.state, slot,
-                                probe, corrected_spans=self._corrected_spans)
-        self._corrected_spans.append(span)
+        with span("engine.loop_probe"):
+            if self._loop_probe is None:
+                self._loop_probe = build_loop_probe(self.config, self.cam,
+                                                    self.generator)
+            kfs = self.state.kfs
+            valid = _host(kfs.valid)
+            if valid.sum() < 2:
+                return False
+            fns = _host(kfs.frames.frame_no)
+            slot = int(np.argmax(np.where(valid, fns, -1)))
+            probe = LoopProbe(*map(_host, self._loop_probe(self.state,
+                                                           slot)))
+            if not bool(probe.ok):
+                return False
+            # each closure's span starts at its matched-landmark era; the
+            # scale is first-contact only (close_loop)
+            closed = (_start_frame(fns, valid, probe), int(fns[slot]))
+            self.state = close_loop(self.config, self.cam, self.state, slot,
+                                    probe,
+                                    corrected_spans=self._corrected_spans)
+        self._corrected_spans.append(closed)
         for _ in range(2):
             self.global_ba()
         self.loop_closures.append((int(fns[slot]), float(probe.drift),
@@ -198,53 +215,62 @@ class SfMEngine:
         """Run global BA on the current map now; returns its stats
         (initial_cost, final_cost, lam, accepted, dropped_obs) as numpy
         values."""
-        self.state, stats = run_global_ba(self.config, self.cam, self.state)
-        self._kfs_since_global_ba = 0
-        return {k: v.cpu().numpy() for k, v in stats._asdict().items()}
+        with span("engine.global_ba"):
+            self.state, stats = run_global_ba(self.config, self.cam,
+                                              self.state)
+            self._kfs_since_global_ba = 0
+            return {k: to_host(_numpy, v) for k, v in stats._asdict().items()}
 
     def _images(self, images, batched: bool) -> torch.Tensor:
         """Frames as float32 on the device: RGB stays RGB when guidance is
         on (real landmark colours, guidance in the step) and becomes luma
         otherwise."""
-        if not torch.is_tensor(images):
-            images = np.asarray(images, np.float32)
-        imgs = torch.as_tensor(images, dtype=torch.float32,
-                               device=self.device)
-        if imgs.dim() == (4 if batched else 3) and \
-                not self.config.guidance_enabled:
-            imgs = (0.299 * imgs[..., 0] + 0.587 * imgs[..., 1]
-                    + 0.114 * imgs[..., 2])
-        return imgs
+        with span("engine.upload"):
+            if not torch.is_tensor(images):
+                images = torch.from_numpy(np.asarray(images, np.float32))
+            if images.device.type != self.device.type:
+                count("uploads")
+            imgs = torch.as_tensor(images, dtype=torch.float32,
+                                   device=self.device)
+            if imgs.dim() == (4 if batched else 3) and \
+                    not self.config.guidance_enabled:
+                imgs = (0.299 * imgs[..., 0] + 0.587 * imgs[..., 1]
+                        + 0.114 * imgs[..., 2])
+            return imgs
 
     def add_frame(self, image) -> dict:
         """Process one frame (mapping runs inline on a keyframe).  image:
         [H, W] grey or [H, W, 3] RGB, uint8 or float."""
-        self.state, m = step_frame(self.config, self.cam, self.state,
-                                   self._images(image, False), self.generator)
-        out = _fetch([m])[0]
-        self.metrics_log.append(out)
-        self._maybe_global_ba(int(out["keyframe_added"]))
-        return out
+        with span("engine.add_frame"):
+            self.state, m = step_frame(self.config, self.cam, self.state,
+                                       self._images(image, False),
+                                       self.generator)
+            out = _fetch([m])[0]
+            self.metrics_log.append(out)
+            self._maybe_global_ba(int(out["keyframe_added"]))
+            return out
 
     def add_frames(self, images) -> list:
         """Process a chunk of frames [T, H, W] or [T, H, W, 3].  Chunks no
         longer than ``keyframe_time_lag`` defer mapping to one pass after
         the chunk (at most one keyframe can be pending); longer chunks map
         inline."""
-        imgs = self._images(images, True)
-        deferred = imgs.shape[0] <= self.config.keyframe_time_lag
-        ms = []
-        for img in imgs:
-            self.state, m = step_frame(self.config, self.cam, self.state, img,
-                                       self.generator, defer_mapping=deferred)
-            ms.append(m)
-        if deferred:
-            self.state = run_pending_mapping(self.config, self.cam,
-                                             self.state)
-        out = _fetch(ms)
-        self.metrics_log.extend(out)
-        self._maybe_global_ba(sum(int(m["keyframe_added"]) for m in out))
-        return out
+        with span("engine.add_frames"):
+            imgs = self._images(images, True)
+            deferred = imgs.shape[0] <= self.config.keyframe_time_lag
+            ms = []
+            for img in imgs:
+                self.state, m = step_frame(self.config, self.cam, self.state,
+                                           img, self.generator,
+                                           defer_mapping=deferred)
+                ms.append(m)
+            if deferred:
+                self.state = run_pending_mapping(self.config, self.cam,
+                                                 self.state)
+            out = _fetch(ms)
+            self.metrics_log.extend(out)
+            self._maybe_global_ba(sum(int(m["keyframe_added"]) for m in out))
+            return out
 
     def get_reconstruction(self) -> Tuple[np.ndarray, np.ndarray]:
         """Live landmark positions [M, 3] and mean observed colours
@@ -284,4 +310,4 @@ class SfMEngine:
 
     @property
     def status(self) -> int:
-        return int(self.state.status)
+        return to_host(int, self.state.status)

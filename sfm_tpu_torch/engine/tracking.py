@@ -24,6 +24,7 @@ from ..guidance import update_guidance
 from ..mapstore import (_set_drop, add_descriptors, add_views,
                         increment_age, insert_keyframe, tree_map)
 from ..ransac import ransac_pnp, sample_masked_fleet
+from ..utils.profiling import count, span, to_host
 from .state import (LOST, RUNNING, CameraParams, SfMState, index_state, luma,
                     metrics, scalar, write_scan)
 
@@ -92,10 +93,11 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
     N = curr.landmark.shape[0]
 
     src_valid = prev.kp_valid & (prev.landmark >= 0)
-    res = match_features_pallas(
-        prev.desc, prev.xy, src_valid, curr.desc, curr.xy, curr.kp_valid,
-        min_radius=cfg.match_min_radius, max_radius=cfg.match_max_radius,
-        max_distance=cfg.match_max_distance, ratio=cfg.match_ratio)
+    with span("track.match"):
+        res = match_features_pallas(
+            prev.desc, prev.xy, src_valid, curr.desc, curr.xy, curr.kp_valid,
+            min_radius=cfg.match_min_radius, max_radius=cfg.match_max_radius,
+            max_distance=cfg.match_max_distance, ratio=cfg.match_ratio)
     if cfg.track_with_flow and image is not None:
         # flow-assisted recall: LK-track the map-linked features whose
         # descriptor match failed and associate the endpoints with still
@@ -113,8 +115,8 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
                            mask=res.mask | use_flow)
     n_matches = res.mask.sum()
 
-    if int(n_matches) < cfg.min_features:
-        lost = int(state.lost_count) + 1
+    if to_host(int, n_matches) < cfg.min_features:
+        lost = to_host(int, state.lost_count) + 1
         status = LOST if lost > cfg.max_lost_frames else RUNNING
         st = state.replace(lost_count=scalar(lost, dev),
                            status=scalar(status, dev))
@@ -124,81 +126,90 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
                            tvec=prev.tvec)
 
     lms = state.lms
-    safe_lm = torch.where(src_valid, prev.landmark, 0).to(torch.int64)
-    xyz = lms.xyz[safe_lm]
-    uv = curr.xy[torch.where(res.mask, res.idx, 0).to(torch.int64)]
-    pnp = ransac_pnp(
-        generator, cam.Kopt, xyz, uv, res.mask & lms.valid[safe_lm],
-        n_hypotheses=cfg.pnp_hypotheses, sample_size=cfg.pnp_sample_size,
-        threshold=cfg.max_reproj_error, refine_iters=cfg.pnp_refine_iters,
-        min_inliers=cfg.min_features, prior_rvec=prev.rvec,
-        prior_tvec=prev.tvec, fast_path_ratio=cfg.pnp_fast_path_ratio,
-        solver=cfg.pnp_solver, samples=pnp_samples)
+    with span("track.pnp"):
+        safe_lm = torch.where(src_valid, prev.landmark, 0).to(torch.int64)
+        xyz = lms.xyz[safe_lm]
+        uv = curr.xy[torch.where(res.mask, res.idx, 0).to(torch.int64)]
+        pnp = ransac_pnp(
+            generator, cam.Kopt, xyz, uv, res.mask & lms.valid[safe_lm],
+            n_hypotheses=cfg.pnp_hypotheses, sample_size=cfg.pnp_sample_size,
+            threshold=cfg.max_reproj_error, refine_iters=cfg.pnp_refine_iters,
+            min_inliers=cfg.min_features, prior_rvec=prev.rvec,
+            prior_tvec=prev.tvec, fast_path_ratio=cfg.pnp_fast_path_ratio,
+            solver=cfg.pnp_solver, samples=pnp_samples)
 
-    # link inlier matches into the current frame
-    inl = pnp.inliers
-    curr_linked = curr.replace(
-        rvec=pnp.rvec, tvec=pnp.tvec,
-        landmark=_set_drop(curr.landmark, torch.where(inl, res.idx, N),
-                           prev.landmark))
-    lms = add_views(lms, torch.where(inl, prev.landmark, -1))
+    with span("track.widen"):
+        # link inlier matches into the current frame
+        inl = pnp.inliers
+        curr_linked = curr.replace(
+            rvec=pnp.rvec, tvec=pnp.tvec,
+            landmark=_set_drop(curr.landmark, torch.where(inl, res.idx, N),
+                               prev.landmark))
+        lms = add_views(lms, torch.where(inl, prev.landmark, -1))
 
-    curr_wide = widen_tracks(cfg, cam, lms, curr_linked, state.rep_desc)
-    linked_all = curr_wide.kp_valid & (curr_wide.landmark >= 0)
-    n_tracked = linked_all.sum()
+        curr_wide = widen_tracks(cfg, cam, lms, curr_linked, state.rep_desc)
+        linked_all = curr_wide.kp_valid & (curr_wide.landmark >= 0)
+        n_tracked = linked_all.sum()
 
-    # pose-only refinement over the full widened track set
-    safe_all = torch.where(linked_all, curr_wide.landmark, 0).to(torch.int64)
-    w_all = (linked_all & lms.valid[safe_all]).to(torch.float32)
-    rv_ref, tv_ref = pnp.rvec, pnp.tvec
-    if cfg.track_refine_iters > 0:
-        rv_ref, tv_ref = refine_pose(cam.Kopt, pnp.rvec, pnp.tvec,
-                                     lms.xyz[safe_all], curr_wide.xy, w_all,
-                                     iters=cfg.track_refine_iters)
-    curr_wide = curr_wide.replace(rvec=rv_ref, tvec=tv_ref)
-    err = reprojection_errors(cam.Kopt, rv_ref, tv_ref, xyz, uv)
-    mean_err = torch.sum(torch.where(inl, err, 0.0)) / torch.clamp(
-        inl.sum(), min=1)
+    with span("track.refine"):
+        # pose-only refinement over the full widened track set
+        safe_all = torch.where(linked_all, curr_wide.landmark, 0).to(
+            torch.int64)
+        w_all = (linked_all & lms.valid[safe_all]).to(torch.float32)
+        rv_ref, tv_ref = pnp.rvec, pnp.tvec
+        if cfg.track_refine_iters > 0:
+            rv_ref, tv_ref = refine_pose(cam.Kopt, pnp.rvec, pnp.tvec,
+                                         lms.xyz[safe_all], curr_wide.xy,
+                                         w_all, iters=cfg.track_refine_iters)
+        curr_wide = curr_wide.replace(rvec=rv_ref, tvec=tv_ref)
+        err = reprojection_errors(cam.Kopt, rv_ref, tv_ref, xyz, uv)
+        mean_err = torch.sum(torch.where(inl, err, 0.0)) / torch.clamp(
+            inl.sum(), min=1)
 
-    # keyframe policy
-    lag_ok = (curr.frame_no - state.last_kf_frame_no) >= cfg.keyframe_time_lag
-    enough = n_tracked >= cfg.keyframe_min_tracked
-    losing = n_tracked < cfg.keyframe_track_ratio * state.last_kf_tracked
-    want_kf = bool(lag_ok & enough & losing & pnp.ok)
+    with span("track.keyframe"):
+        # keyframe policy
+        lag_ok = (curr.frame_no - state.last_kf_frame_no) \
+            >= cfg.keyframe_time_lag
+        enough = n_tracked >= cfg.keyframe_min_tracked
+        losing = n_tracked < cfg.keyframe_track_ratio * state.last_kf_tracked
+        want_kf = to_host(bool, lag_ok & enough & losing & pnp.ok)
 
-    st = state.replace(lms=lms, lost_count=scalar(0, dev))
-    new_prev = curr_wide
-    if want_kf:
-        kfs, slot = insert_keyframe(st.kfs, curr_wide)
-        inserted = slot >= 0
-        if mapping_fn is not None:
-            st = st.replace(lms=add_descriptors(
-                st.lms, torch.where(inserted & curr_wide.kp_valid,
-                                    curr_wide.landmark, -1),
-                curr_wide.desc, colors=curr_wide.color))
-        st = st.replace(
-            kfs=kfs,
-            last_kf_frame_no=torch.where(inserted, curr.frame_no,
-                                         st.last_kf_frame_no),
-            last_kf_tracked=torch.where(inserted, n_tracked,
-                                        st.last_kf_tracked).to(torch.int32))
-        if mapping_fn is None:
-            st = st.replace(pending_map_slot=slot)
-        elif int(slot) >= 0:
-            st = mapping_fn(st, slot)
-            # the track-ratio policy compares against the keyframe's links
-            # as the mapping pass just enriched them
-            fr2 = st.kfs.frames
-            st = st.replace(last_kf_tracked=(
-                fr2.kp_valid[slot] & (fr2.landmark[slot] >= 0)).sum().to(
-                    torch.int32))
-        # the optimised keyframe pose becomes the new reference pose
-        new_prev = curr_wide.replace(
-            rvec=_kf_pose(st, curr.frame_no, curr_wide.rvec, "rvec"),
-            tvec=_kf_pose(st, curr.frame_no, curr_wide.tvec, "tvec"))
-    kf_added = torch.tensor(want_kf, device=dev) & (
-        st.last_kf_frame_no == curr.frame_no)
-    st = st.replace(prev=new_prev, lms=increment_age(st.lms, 1, 0))
+        st = state.replace(lms=lms, lost_count=scalar(0, dev))
+        new_prev = curr_wide
+        if want_kf:
+            kfs, slot = insert_keyframe(st.kfs, curr_wide)
+            inserted = slot >= 0
+            if mapping_fn is not None:
+                st = st.replace(lms=add_descriptors(
+                    st.lms, torch.where(inserted & curr_wide.kp_valid,
+                                        curr_wide.landmark, -1),
+                    curr_wide.desc, colors=curr_wide.color))
+            st = st.replace(
+                kfs=kfs,
+                last_kf_frame_no=torch.where(inserted, curr.frame_no,
+                                             st.last_kf_frame_no),
+                last_kf_tracked=torch.where(inserted, n_tracked,
+                                            st.last_kf_tracked).to(
+                                                torch.int32))
+            if mapping_fn is None:
+                st = st.replace(pending_map_slot=slot)
+            elif to_host(int, slot) >= 0:
+                st = mapping_fn(st, slot)
+                # the track-ratio policy compares against the keyframe's
+                # links as the mapping pass just enriched them
+                fr2 = st.kfs.frames
+                count("implicit_sync", 2)  # two indexes by a tensor
+                st = st.replace(last_kf_tracked=(
+                    fr2.kp_valid[slot] & (fr2.landmark[slot] >= 0)).sum().to(
+                        torch.int32))
+            # the optimised keyframe pose becomes the new reference pose
+            new_prev = curr_wide.replace(
+                rvec=_kf_pose(st, curr.frame_no, curr_wide.rvec, "rvec"),
+                tvec=_kf_pose(st, curr.frame_no, curr_wide.tvec, "tvec"))
+        count("implicit_sync")  # want_kf's copy to the device
+        kf_added = torch.tensor(want_kf, device=dev) & (
+            st.last_kf_frame_no == curr.frame_no)
+        st = st.replace(prev=new_prev, lms=increment_age(st.lms, 1, 0))
     return st, metrics(
         curr, status=st.status, n_matches=n_matches, n_inliers=pnp.n_inliers,
         n_tracked=n_tracked, n_landmarks=st.lms.valid.sum(),

@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .bits import pack_bits
 from .detect import Keypoints, canvas_layout
 from .patches_pallas import PATCH, PATCH_RADIUS, extract_patches_pallas
@@ -91,8 +92,10 @@ _DEVICE_TABLES = {}
 def _device_tables(bits: int, device):
     key = (bits, str(device))
     if key not in _DEVICE_TABLES:
+        host = tables(bits)
+        count("implicit_sync", len(host))  # each copied to the card once
         _DEVICE_TABLES[key] = tuple(torch.as_tensor(t, device=device)
-                                    for t in tables(bits))
+                                    for t in host)
     return _DEVICE_TABLES[key]
 
 
@@ -146,6 +149,7 @@ def patch_inputs(canvas: torch.Tensor, kps: Keypoints, levels: int,
     assert lay.width == canvas.shape[-1], "canvas/layout mismatch"
     scale = torch.exp2(kps.level.to(torch.float32))[..., None]
     level_xy = (kps.xy - 0.5 * (scale - 1.0)) / scale
+    count("implicit_sync")  # the offsets copied to the card
     offs = torch.as_tensor(np.array(lay.offsets, np.float32),
                            device=canvas.device)
     cx = level_xy[..., 0] + offs[kps.level.to(torch.int64)]

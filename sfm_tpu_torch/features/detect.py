@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count
+
 # FAST-16 Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx)
 _CIRCLE = ((-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2),
            (3, 1), (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3),
@@ -178,6 +180,7 @@ def detect(img: torch.Tensor, *, max_keypoints: int, levels: int = 4,
     canvas = build_canvas(imgs, levels)
     WC = lay.width
     raw = fast_score(canvas, threshold)
+    count("implicit_sync", 4)  # the layout's four tables copied to the card
     s = nms(raw, nms_radius) * torch.as_tensor(lay.inside, device=dev)
     # tie-break equal scores toward finer pyramid levels
     bias = torch.as_tensor(

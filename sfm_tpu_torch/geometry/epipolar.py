@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
 from .camera import depths
 from .rotations import exp_so3, hat
 
@@ -21,6 +22,7 @@ def essential_from_poses(rvec0, tvec0, rvec1, tvec1):
 def fundamental_from_poses(K0, rvec0, tvec0, K1, rvec1, tvec1):
     """F = K1^-T E K0^-1."""
     E = essential_from_poses(rvec0, tvec0, rvec1, tvec1)
+    count("implicit_sync", 2)  # the two inverses' checks on the card
     return torch.linalg.inv(K1).T @ E @ torch.linalg.inv(K0)
 
 
@@ -55,6 +57,7 @@ def filter_matches_epipolar(F, uv0, uv1, xyz, rvec0, tvec0, rvec1, tvec1,
 
 def homography_transfer_error_sq(H, uv0, uv1):
     """(|x1 - H x0|^2, |x0 - H^-1 x1|^2) per match."""
+    count("implicit_sync")  # the inverse's check on the card
     Hinv = torch.linalg.inv(H)
     p1 = _homog(uv0) @ H.transpose(-1, -2)
     p0 = _homog(uv1) @ Hinv.transpose(-1, -2)

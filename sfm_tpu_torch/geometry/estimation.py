@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..utils.profiling import count
+
 
 def _normalize_points(uv, w):
     """Weighted Hartley normalisation: centroid to the origin, mean distance
@@ -30,6 +32,7 @@ def _normalize_points(uv, w):
 
 
 def smallest_eigvec(AtA):
+    count("implicit_sync")  # eigh's check on the card
     _, V = torch.linalg.eigh(AtA)
     return V[..., :, 0]
 
@@ -47,6 +50,7 @@ def estimate_homography(uv0, uv1, w):
     r2 = torch.stack([zero, zero, zero, -x, -y, -one, v * x, v * y, v], -1)
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
     h = smallest_eigvec(A.transpose(-1, -2) @ A)
+    count("implicit_sync")  # the inverse's check on the card
     H = torch.linalg.inv(T1) @ h.reshape(*h.shape[:-1], 3, 3) @ T0
     scale = H[..., 2, 2]
     scale = torch.where(torch.abs(scale) > 1e-8, scale, torch.ones_like(scale))
@@ -64,6 +68,7 @@ def estimate_fundamental(uv0, uv1, w):
     A = torch.stack([u * x, u * y, u, v * x, v * y, v, x, y,
                      torch.ones_like(x)], -1) * w[..., None]
     f = smallest_eigvec(A.transpose(-1, -2) @ A)
+    count("implicit_sync", 2)  # the SVD's two checks on the card
     U, S, Vh = torch.linalg.svd(f.reshape(*f.shape[:-1], 3, 3))
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
     Fn = (U * S[..., None, :]) @ Vh

@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from ..utils.profiling import count
 from .camera import project
 from .poly import quartic_roots
 from .rotations import exp_so3, hat, log_so3, nearest_rotation
@@ -19,6 +20,7 @@ def pnp_dlt(K, xyz, uv, w):
     [B, 1, N, 3] against masks [B, H, N]).  Returns (rvec [..., 3], tvec
     [..., 3]).  Needs >= 6 effective, non-coplanar points."""
     w = w.to(xyz.dtype)
+    count("implicit_sync", 2)  # the checks of inv here and of eigh below
     Kinv = torch.linalg.inv(K)
     xn = (torch.cat([uv, torch.ones_like(uv[..., :1])], -1)
           @ Kinv.T)[..., :2]

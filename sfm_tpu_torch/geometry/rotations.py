@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
+
 _EPS = 1e-8
 
 
@@ -93,6 +95,7 @@ def nearest_rotation(M: torch.Tensor) -> torch.Tensor:
     det(U V^T)) V^T from the SVD (the JAX package computes the same optimum
     with Horn's closed-form quaternion because batched SVD was slow on the
     TPU)."""
+    count("implicit_sync", 2)  # the SVD's two checks on the card
     U, _, Vh = torch.linalg.svd(M)
     det = torch.linalg.det(U @ Vh)
     d = torch.where(det < 0, -1.0, 1.0).to(M.dtype)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
 from .camera import apply_intrinsics
 from .rotations import log_so3
 from .triangulate import triangulate_pair
@@ -29,6 +30,7 @@ def decompose_essential(E):
 def decompose_homography(H, K0, K1):
     """Faugeras SVD decomposition of a Euclidean homography into 8
     candidate (R, t) motions: (Rs [8, 3, 3], ts [8, 3])."""
+    count("implicit_sync", 3)  # the checks of inv (one) and svd (two)
     A = torch.linalg.inv(K1) @ H @ K0
     U, D, Vh = torch.linalg.svd(A)
     s = torch.linalg.det(U) * torch.linalg.det(Vh)
@@ -88,6 +90,7 @@ def cheirality_vote(Rs, ts, K0, K1, uv0, uv1, valid,
     good = (z0 > 1e-6) & (z1 > 1e-6) & (e0 < m2) & (e1 < m2) & valid
     ns = good.sum(-1)
     best = torch.argmax(ns)
+    count("implicit_sync", 5)  # each index by a tensor on the card
     return Rs[best], ts[best], X[best], good[best], ns[best]
 
 

@@ -24,6 +24,7 @@ import torch
 from .config import SfMConfig
 from .geometry.camera import project
 from .mapstore import _Tree
+from .utils.profiling import count
 
 _N_HULL_DIRS = 32
 
@@ -44,6 +45,7 @@ class GuidanceOutput(NamedTuple):
 
 
 def init_guidance(cfg: SfMConfig, device) -> GuidanceState:
+    count("implicit_sync")  # initialized's copy to the card
     return GuidanceState(
         centroid=torch.zeros(3, device=device),
         hist=torch.zeros((cfg.guidance_hist_bins_h, cfg.guidance_hist_bins_s),

@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 
 from .features.bits import pack_bits, unpack_bits
+from .utils.profiling import count
 from .utils.rowsum import add_rows
 
 
@@ -81,6 +82,7 @@ class Frame(_Tree):
 
 def empty_frame(n_kp: int, desc_words: int, device) -> Frame:
     f32, i32 = torch.float32, torch.int32
+    count("implicit_sync")  # frame_no's blocking copy to the card
     return Frame(
         xy=torch.zeros((n_kp, 2), dtype=f32, device=device),
         xy_dist=torch.zeros((n_kp, 2), dtype=f32, device=device),
@@ -103,6 +105,9 @@ class KeyframeStore(_Tree):
 
     def frame(self, slot) -> Frame:
         """The Frame stored in ``slot`` (int or 0-dim tensor)."""
+        if torch.is_tensor(slot):
+            # an index by a tensor reads it: once for each field
+            count("implicit_sync", len(dataclasses.fields(self.frames)))
         return self.frames.map(lambda x: x[slot])
 
 
@@ -161,6 +166,8 @@ def _set_drop(t: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     pad = torch.cat([t, t.new_zeros(lead + (1,) + rows)], dim=nb)
     flat = pad.reshape((-1,) + rows)
     fidx = idx.to(torch.int64) + _offsets(lead, L + 1, t.device)
+    if not torch.is_tensor(vals) or vals.device != t.device:
+        count("implicit_sync")  # vals copied to the card
     v = torch.as_tensor(vals, device=t.device).to(t.dtype)
     flat[fidx.reshape(-1)] = v.expand(tuple(idx.shape) + rows).reshape(
         (-1,) + rows)
@@ -379,6 +386,9 @@ def cull_keyframes(kfs: KeyframeStore, n_landmarks: int, *,
     valid = kfs.valid.clone()
     culled = torch.zeros(K, dtype=torch.bool, device=valid.device)
     for i in range(K):
+        # six reads of the card's values an iteration: the index k in
+        # links[k], obs_all[k] and valid[k] twice, and the two stores
+        count("implicit_sync", 6)
         k = order[i]
         lk = links[k]
         obs = obs_all[k]

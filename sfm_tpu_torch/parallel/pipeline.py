@@ -46,6 +46,7 @@ from ..engine.state import (CameraParams, SfMState, init_state,
 from ..engine.step import _fetch, step_frame
 from ..mapstore import representative_descriptors, tree_map
 from ..utils import PhaseTimer
+from ..utils.profiling import to_host
 
 
 def _delta(m, sk, s0, same):
@@ -145,7 +146,7 @@ class AsyncMappingEngine:
             self.state, metrics = step_frame(
                 self.cfg, self.cam, self.state, img, self.generator,
                 defer_mapping=True)
-            slot = int(self.state.pending_map_slot)   # host sync point
+            slot = to_host(int, self.state.pending_map_slot)
         if slot >= 0:
             self._queue.append(slot)
             self.state = self.state.replace(

@@ -17,6 +17,7 @@ from .geometry.epipolar import (epiline_distance_sq,
                                 homography_transfer_error_sq)
 from .geometry.estimation import estimate_fundamental, estimate_homography
 from .geometry.pnp import p3p, pnp_dlt, refine_pose, reprojection_errors
+from .utils.profiling import count
 
 
 def sample_masked(generator: Optional[torch.Generator], valid: torch.Tensor,
@@ -75,6 +76,7 @@ def ransac_fundamental(generator, uv0, uv1, valid, *,
         d1, d0 = epiline_distance_sq(F, uv0, uv1)
         return (d1 < threshold) & (d0 < threshold) & valid
 
+    count("implicit_sync")  # an index by a tensor on the card
     F0 = Fs[torch.argmax(inliers(Fs).sum(-1))]
     F = estimate_fundamental(uv0, uv1, inliers(F0).to(torch.float32))
     inl = inliers(F)

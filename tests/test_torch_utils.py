@@ -1,5 +1,7 @@
 """``sfm_tpu_torch.utils.PhaseTimer`` against the JAX package's on the same
-phases and the same clock readings."""
+phases and the same clock readings (the JAX timer reads
+``time.perf_counter``, the port's, a view over its span recorder,
+``time.time_ns``)."""
 
 import itertools
 import time
@@ -12,6 +14,8 @@ def _drive(timer_cls, monkeypatch):
     # a clock that advances 0.25 s per reading: each phase lasts 0.25 s
     clock = itertools.count()
     monkeypatch.setattr(time, "perf_counter", lambda: 0.25 * next(clock))
+    monkeypatch.setattr(time, "time_ns",
+                        lambda: 250_000_000 * next(clock))
     timer = timer_cls()
     for name in ("tracking", "mapping pass", "tracking", "global BA",
                  "tracking"):
