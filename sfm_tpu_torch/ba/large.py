@@ -19,6 +19,7 @@ camera."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 from ..geometry.rotations import exp_so3
 from ..utils.profiling import count, span, to_host
 from ..utils.rowsum import RowSum
+from . import pcg_graph
 from .core import BAStats, _damp, _inv
 from .linearize_pallas import ba_linearize, damped_vinv
 from .residuals import Observations, apply_pose_update
@@ -203,6 +205,31 @@ def _local(*ts):
     return ts
 
 
+def _schur_pcg(Ud, M_inv, rhs, W, vinv, lm_cam, offsets, slots, *,
+               iterations: int, reduce=_local):
+    """``_pcg`` on the reduced camera system S x = Ud x - W Vinv W^T x, its
+    coupling through K3 and summed over shards by ``reduce``: a function
+    of tensors alone, as ``pcg_graph.run`` captures it."""
+    op = SchurOperator(W, lm_cam, vinv, CameraSlots(offsets, slots))
+
+    def matvec(x):
+        return (Ud @ x[:, :, None])[..., 0] - reduce(op.w_vinv_wt_x(x))[0]
+
+    return _pcg(matvec, M_inv, rhs, iterations)
+
+
+def _pcg_key(Ud, W, iterations: int) -> tuple:
+    """What a captured ``_schur_pcg`` is fixed to: device, dtype, (C, L,
+    kmax) and the trip count."""
+    return (Ud.device, Ud.dtype, Ud.shape[0], *W.shape[:2], iterations)
+
+
+def _pcg_graph_wanted(device: torch.device, reduce) -> bool:
+    """The PCG runs as a captured graph on the card for an unsharded
+    problem; a sharded one's all-reduce, and the CPU, run it eagerly."""
+    return device.type == "cuda" and reduce is _local
+
+
 def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
               *, iterations: int, cg_iterations: int, lam0: float,
               lam_up: float, lam_down: float, huber_delta: float, tol: float,
@@ -215,9 +242,12 @@ def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
     itself.  One host read per iteration, after the cost is reduced, so
     every shard reads the same accept flag.  ``precond``: the PCG's
     block-Jacobi blocks, "jacobi_u" (the damped U blocks) or "schur_diag"
-    (the exact diagonal blocks of the Schur complement)."""
+    (the exact diagonal blocks of the Schur complement).  On the card, an
+    unsharded problem's PCG is the replay of a CUDA graph
+    (``pcg_graph``)."""
     with span("ba.solve"):
         C = rvec.shape[0]
+        graphed = _pcg_graph_wanted(xyz.device, reduce)
         lm_cam = lm_cam.to(torch.int32).contiguous()
         lm_uv = lm_uv.contiguous()
         lm_w = lm_w.contiguous()
@@ -247,11 +277,6 @@ def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
                 Ud = _damp(U, lam)
                 vinv = damped_vinv(V, lam)
                 op = SchurOperator(W, lm_cam, vinv, cslots)
-
-                def matvec(x):
-                    return (Ud @ x[:, :, None])[..., 0] \
-                        - reduce(op.w_vinv_wt_x(x))[0]
-
                 rhs = g_cam - reduce(op.w_vinv_g(g_lm, C))[0]
                 if precond == "schur_diag":
                     # block-Jacobi on the exact diagonal of S = damp(U) -
@@ -265,7 +290,17 @@ def _large_lm(K, rvec, tvec, xyz, lm_cam, lm_uv, lm_w, cam_free_f, lm_free_f,
                     # 1e-6 floor and this one are both kept, as in the JAX
                     # package
                     M_inv = _inv(Ud + 1e-6 * eye6)
-                d_cam = _pcg(matvec, M_inv, rhs, cg_iterations)
+                pcg_in = dict(Ud=Ud, M_inv=M_inv, rhs=rhs, W=W, vinv=vinv,
+                              lm_cam=lm_cam, offsets=cslots.offsets,
+                              slots=cslots.slots)
+                if graphed:
+                    d_cam = pcg_graph.run(
+                        _pcg_key(Ud, W, cg_iterations),
+                        functools.partial(_schur_pcg,
+                                          iterations=cg_iterations), pcg_in)
+                else:
+                    d_cam = _schur_pcg(**pcg_in, iterations=cg_iterations,
+                                       reduce=reduce)
             with span("ba.update"):
                 d_cam = d_cam * cam_free_f[:, None]
                 d_lm = op.back_substitute(g_lm, d_cam) * lm_free_f[:, None]

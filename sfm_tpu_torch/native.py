@@ -12,12 +12,16 @@ the CPU tests import every module on a machine without ``nvcc``.
 Each wrapper counts its launches with ``count_launch``: it adds one where it
 launches its kernel, and nowhere else, so a run can show that the main
 path went through the kernels.  ``LAUNCHES`` holds the counts by kernel and
-``STREAM_LAUNCHES`` by kernel and CUDA stream.  Kernels launch from more
-than one thread (the pipeline's mapping worker, the server's connections),
-so the counts and the first build are taken under locks."""
+``STREAM_LAUNCHES`` by kernel and CUDA stream.  A launch made while a CUDA
+graph is captured (``captured_launches``) runs only when the graph is
+replayed: it is recorded, and counted on each replay (``count_replay``).
+Kernels launch from more than one thread (the pipeline's mapping worker,
+the server's connections), so the counts and the first build are taken
+under locks."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +44,7 @@ BUILD_INFO = {}
 _lib = None
 _build_lock = threading.Lock()
 _count_lock = threading.Lock()
+_capture = threading.local()   # .launches: the capture's record, or None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,11 +73,36 @@ def reset_launch_counts() -> None:
 
 def count_launch(name: str, stream: ctypes.c_void_p) -> None:
     """One launch of kernel ``name`` on ``stream`` (the handle the wrapper
-    passed to it)."""
-    key = (name, stream.value or 0)
+    passed to it); inside ``captured_launches`` on this thread, recorded
+    instead."""
+    captured = getattr(_capture, "launches", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + 1
+        return
+    count_replay({name: 1}, stream)
+
+
+def count_replay(launches: dict, stream: ctypes.c_void_p) -> None:
+    """``launches`` ({kernel: n}, as ``captured_launches`` recorded them)
+    made on ``stream``: a captured graph's replay there."""
     with _count_lock:
-        LAUNCHES[name] += 1
-        STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
+        for name, n in launches.items():
+            key = (name, stream.value or 0)
+            LAUNCHES[name] += n
+            STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While open, the launches made on this thread are being captured
+    into a CUDA graph: they are recorded into the yielded {kernel: n} and
+    not counted (the capture runs nothing)."""
+    launches = {}
+    _capture.launches = launches
+    try:
+        yield launches
+    finally:
+        _capture.launches = None
 
 
 def cuda_tool(name: str) -> str:

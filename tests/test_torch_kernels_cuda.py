@@ -26,6 +26,10 @@ from sfm_tpu_torch.geometry.rotations import exp_so3
 
 pytestmark = pytest.mark.cuda
 
+# chip_smoke.py: the kernel cases of its "sanitize" phase
+# (``--sanitize-target``) and its BA problems
+SMOKE = chip_smoke()
+
 
 @pytest.fixture
 def cuda():
@@ -1039,6 +1043,113 @@ def test_run_large_ba_schur_diag_repeats_bit_for_bit(cuda):
         assert torch.equal(getattr(runs[0][3], k), getattr(runs[1][3], k))
 
 
+# (cameras, landmarks, kmax, CG iterations, share of live landmark rows):
+# a ba1k-like problem, and FLAGSHIP's mapping BA (32 keyframe slots, 2048
+# compacted landmark rows, part of them live)
+PCG_GRAPH_SHAPES = {"ba1k_like": (200, 20000, 6, 25, 1.0),
+                    "flagship_mapping": (32, 2048, 8, 12, 0.6)}
+
+
+@pytest.fixture
+def fresh_pcg_graphs(monkeypatch):
+    from collections import OrderedDict
+    from sfm_tpu_torch.ba import pcg_graph
+    monkeypatch.setattr(pcg_graph, "_GRAPHS", OrderedDict())
+
+
+def _pcg_inputs(cuda, C, L, kmax, live, seed, lam=1e-3):
+    """``large._schur_pcg``'s inputs at a problem's start, made as
+    ``_large_lm`` makes them (K2's blocks damped, the jacobi_u
+    preconditioner, the rhs through K3)."""
+    from sfm_tpu_torch.ba.core import _damp, _inv
+    from sfm_tpu_torch.ba.large import camera_slots
+    pr = SMOKE.ba_problem(torch, cuda, C, L, kmax, seed=seed, noise_px=0.5,
+                          spread=0.2, live=live)
+    lm_cam, lm_uv, lm_w = pr["tables"][:3]
+    cs = camera_slots(lm_cam, lm_w, C)
+    W, V, g_lm, U, g_cam, _ = lp.ba_linearize(
+        pr["K"], exp_so3(pr["rv"]).contiguous(), pr["tv"], pr["X"],
+        pr["lm_free"].float(), pr["cam_free"].float(), lm_cam, lm_uv, lm_w,
+        2.0, slots=cs)
+    Ud, vinv = _damp(U, lam), lp.damped_vinv(V, lam)
+    rhs = g_cam - sp.SchurOperator(W, lm_cam, vinv, cs).w_vinv_g(g_lm, C)
+    M_inv = _inv(Ud + 1e-6 * torch.eye(6, device=cuda))
+    return dict(Ud=Ud, M_inv=M_inv, rhs=rhs, W=W, vinv=vinv, lm_cam=lm_cam,
+                offsets=cs.offsets, slots=cs.slots)
+
+
+@pytest.mark.parametrize("shape", list(PCG_GRAPH_SHAPES))
+def test_pcg_graph_replays_equal_the_eager_loop(cuda, fresh_pcg_graphs,
+                                                shape):
+    """The PCG captured once, then replayed on two problems of one shape
+    in turn: each replay equals the eager loop on its problem bit for bit
+    (the static inputs are refreshed), nothing more is captured, and every
+    replay counts its CG iterations' K3 launches on the caller's
+    stream."""
+    import functools
+    from sfm_tpu_torch.ba import large, pcg_graph
+    from sfm_tpu_torch.utils.profiling import RECORDER
+    C, L, kmax, cg, live = PCG_GRAPH_SHAPES[shape]
+    fn = functools.partial(large._schur_pcg, iterations=cg)
+    problems = [_pcg_inputs(cuda, C, L, kmax, live, seed) for seed in (1, 2)]
+    eager = [fn(**p) for p in problems]
+    assert not torch.equal(eager[0], eager[1])
+    key = large._pcg_key(problems[0]["Ud"], problems[0]["W"], cg)
+    with RECORDER.enabled() as trace:
+        first = pcg_graph.run(key, fn, problems[0])
+        assert trace.counter("pcg_graph_capture") == 1
+        native.reset_launch_counts()
+        order = (1, 0, 1, 1)
+        outs = [pcg_graph.run(key, fn, problems[i]) for i in order]
+        torch.cuda.synchronize()
+    assert trace.counter("pcg_graph_capture") == 1
+    assert trace.counter("pcg_graph_replay") == len(order)
+    assert torch.equal(first, eager[0])
+    for i, out in zip(order, outs):
+        assert torch.equal(out, eager[i]), i
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert native.STREAM_LAUNCHES == {("schur_apply", stream):
+                                      len(order) * cg}
+
+
+def test_run_large_ba_replays_equal_the_eager_solve(cuda, fresh_pcg_graphs,
+                                                    monkeypatch):
+    """run_large_ba at the ba1k-like shape, twice with the graph path (the
+    first solve captures, the second captures nothing) against the eager
+    path: the same bits, and per solve (cg + 1) K3 full applies an LM
+    iteration, as eagerly."""
+    from sfm_tpu_torch.ba import large
+    from sfm_tpu_torch.utils.profiling import RECORDER
+    C, L, kmax, cg, _ = PCG_GRAPH_SHAPES["ba1k_like"]
+    pr = SMOKE.ba_problem(torch, cuda, C, L, kmax, seed=4, noise_px=0.5,
+                          spread=0.2)
+    kw = dict(cam_free=pr["cam_free"], lm_free=pr["lm_free"], iterations=4,
+              cg_iterations=cg, huber_delta=2.0, tol=0.0)
+
+    def solve():
+        native.reset_launch_counts()
+        out = large.run_large_ba(pr["K"], pr["rv"], pr["tv"], pr["X"],
+                                 pr["tables"], **kw)
+        torch.cuda.synchronize()
+        return out, native.LAUNCHES["schur_apply"]
+    with monkeypatch.context() as m:
+        m.setattr(large, "_pcg_graph_wanted", lambda device, reduce: False)
+        eager, n_eager = solve()
+    assert n_eager == kw["iterations"] * (cg + 1)
+    captured = []
+    for _ in range(2):
+        with RECORDER.enabled() as trace:
+            out, n = solve()
+        captured.append(trace.counter("pcg_graph_capture"))
+        assert n == n_eager
+        assert trace.counter("pcg_graph_capture") + trace.counter(
+            "pcg_graph_replay") == trace.calls("ba.pcg") == kw["iterations"]
+        for a, b in zip(out[:3] + out[3][:4], eager[:3] + eager[3][:4]):
+            assert torch.equal(a, b)
+    assert captured == [1, 0]
+    assert float(eager[3].final_cost) < float(eager[3].initial_cost)
+
+
 def test_distorted_flagship_make_frame_on_the_card_matches_the_cpu(cuda):
     """make_frame at FLAGSHIP's size (480x640, 512 keypoints) on a
     ray-traced frame through chip_smoke's lens, on the card (K5 among
@@ -1086,10 +1197,6 @@ def test_distorted_flagship_make_frame_on_the_card_matches_the_cpu(cuda):
     rate = float((bits(a.desc.numpy()[i]) != bits(b.desc.numpy()[j])).mean())
     print(f"descriptor bits apart: {rate:.2e}")
     assert rate < 0.002
-
-
-# chip_smoke.py's kernel driver (the "sanitize" phase, ``--sanitize-target``)
-SMOKE = chip_smoke()
 
 
 @pytest.mark.parametrize("name", list(SMOKE.SANITIZE_CASES))

@@ -10,6 +10,7 @@ reason.  On a GPU machine run them with
 import json
 import re
 import warnings
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -56,13 +57,22 @@ def _engine(cuda):
 
 
 def _flagged(call):
-    """(``call()``, the synchronisations flagged while it ran, its
-    trace)."""
+    """(``call()``, the synchronisations flagged while it ran, its trace):
+    the sync debug mode's warnings, and the device-wide synchronizes,
+    which it does not flag (``torch.cuda.graph`` makes one before the
+    solver's PCG graph is captured)."""
+    synced, real = [], torch.cuda.synchronize
+
+    def synchronize(*a, **k):
+        synced.append(1)
+        return real(*a, **k)
     with warnings.catch_warnings(record=True) as caught, \
-            RECORDER.enabled() as trace:
+            RECORDER.enabled() as trace, \
+            mock.patch.object(torch.cuda, "synchronize", synchronize):
         warnings.simplefilter("always")
         out = call()
-    return out, sum(SYNC in str(w.message) for w in caught), trace
+    return (out, sum(SYNC in str(w.message) for w in caught) + len(synced),
+            trace)
 
 
 def _counted(trace):
