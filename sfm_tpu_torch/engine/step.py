@@ -214,12 +214,21 @@ class SfMEngine:
     def global_ba(self) -> dict:
         """Run global BA on the current map now; returns its stats
         (initial_cost, final_cost, lam, accepted, dropped_obs) as numpy
-        values."""
+        values, and counts the observations the tables dropped in
+        ``global_ba_dropped_obs``."""
         with span("engine.global_ba"):
             self.state, stats = run_global_ba(self.config, self.cam,
                                               self.state)
             self._kfs_since_global_ba = 0
-            return {k: to_host(_numpy, v) for k, v in stats._asdict().items()}
+            # one copy for the five stats: float64 holds each of them
+            # (float32 costs, small counts) exactly
+            stats = stats._asdict()
+            host = to_host(_numpy, torch.stack(
+                [v.to(torch.float64) for v in stats.values()]))
+            out = {k: torch.tensor(h, dtype=v.dtype).numpy()
+                   for (k, v), h in zip(stats.items(), host)}
+            count("global_ba_dropped_obs", int(out["dropped_obs"]))
+            return out
 
     def _images(self, images, batched: bool) -> torch.Tensor:
         """Frames as float32 on the device: RGB stays RGB when guidance is
