@@ -4507,13 +4507,14 @@ SANITIZE_FUNCTIONS = ("match.cu dense_kernel", "match.cu cells_kernel",
                       "patches.cu patch_kernel",
                       "linearize.cu landmark_phase",
                       "linearize.cu camera_phase",
-                      "schur.cu landmark_phase", "schur.cu camera_phase")
+                      "schur.cu landmark_phase", "schur.cu camera_phase",
+                      "cull.cu cull_keyframes_kernel")
 # compute-sanitizer's tools, and its kernel filter: the port's functions
 # only (their mangled names hold these), none of PyTorch's
 SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 SANITIZER_FILTER = ("regex=dense_kernel|cells_kernel|init_keys|"
                     "epilogue_kernel|patch_kernel|landmark_phase|"
-                    "camera_phase")
+                    "camera_phase|cull_keyframes_kernel")
 SANITIZER_TIMEOUT = 600.0
 # bytes of poison on each side of every tensor a guarded call reads or
 # the wrappers allocate, and the two poisons (0xFF: NaN in f32, -1 in
@@ -4804,6 +4805,75 @@ def ba_edge_case(C, L, kmax, seed=3):
     return build
 
 
+def cull_store(K, N, L, *, seed=0, tie=None, live=0.75):
+    """A keyframe store for the cull walk, in numpy: (links [K, N] int32,
+    kp_valid [K, N], valid [K], frame_no [K] int32), with a share 1 - live
+    of the slots invalid and interleaved, and the slots in shuffled frame
+    order.  ``tie`` None: a sweep, each keyframe linking 50-95% of its
+    keypoints to distinct landmarks of a stretch twice as wide, the
+    stretches ~12 views deep, and 2% of its links repeated within it; so the
+    early ranks are redundant and the culls thin the views for the later
+    ones.  ``tie`` (n_red, n_obs): every valid keyframe links n_red
+    landmarks that all share and n_obs - n_red of its own (and a few
+    shared ones on invalid keypoints), so that each rank's fraction is
+    n_red / n_obs exactly until the shared views run down."""
+    g = np.random.default_rng(seed)
+    valid = g.uniform(0, 1, K) < live
+    frame_no = g.permutation(4 * K)[:K].astype(np.int32)
+    links = np.full((K, N), -1, np.int32)
+    kp_valid = g.uniform(0, 1, (K, N)) < 0.95
+    if tie is None:
+        m = (g.uniform(0.5, 0.95, K) * N).astype(int)
+        step = max(1, int(0.72 * N / 12))
+        start = np.argsort(np.argsort(frame_no)) * step
+        for k in range(K):
+            stretch = g.choice(2 * m[k], m[k], replace=False)
+            links[k, g.choice(N, m[k], replace=False)] = \
+                (start[k] + stretch) % L
+            rep = g.choice(N, max(1, N // 50), replace=False)
+            links[k, rep] = links[k, g.choice(N, len(rep))]
+    else:
+        n_red, n_obs = tie
+        assert n_obs + 4 <= N and n_red + K * (n_obs - n_red) <= L
+        kp_valid[:] = True
+        for k in range(K):
+            cols = g.permutation(N)
+            own = n_red + k * (n_obs - n_red) + np.arange(n_obs - n_red)
+            links[k, cols[:n_obs]] = np.concatenate([np.arange(n_red), own])
+            off = cols[n_obs:n_obs + 4]
+            links[k, off] = g.integers(0, n_red, len(off))
+            kp_valid[k, off] = False
+    return links, kp_valid, valid, frame_no
+
+
+def cull_inputs(torch, dev, K, N, L, **kw):
+    """``cull_ranks_kernel``'s tensor arguments on ``cull_store``: (order,
+    links, kp_valid, valid, counts)."""
+    from sfm_tpu_torch.mapstore import cull_order_counts
+    links, kp_valid, valid, frame_no = (
+        torch.as_tensor(a, device=dev) for a in cull_store(K, N, L, **kw))
+    order, counts = cull_order_counts(valid, frame_no, links, kp_valid, L)
+    return order, links, kp_valid, valid, counts
+
+
+def cull_case(K, N, L, keep_first=2, redundancy=0.9, min_others=3, **kw):
+    """The keyframe cull at (K, N, L) on ``cull_store(**kw)``: the walk's
+    three outputs (valid, culled, the decremented counts) bit for bit."""
+    def build(torch, dev):
+        from sfm_tpu_torch import mapstore as ms
+        opts = dict(redundancy=redundancy, min_others=min_others,
+                    keep_first=keep_first)
+        tie = kw.get("tie")
+        return [_sub(
+            f"cull {K}x{N}x{L}" + (f" tie {tie[0]}/{tie[1]}" if tie else "")
+            + f" keep_first {keep_first}",
+            cull_inputs(torch, dev, K, N, L, **kw),
+            lambda *a: ms.cull_ranks_kernel(*a, **opts),
+            lambda *a: ms.cull_ranks_plain(*a, **opts),
+            ("cull.cu cull_keyframes_kernel",), True)]
+    return build
+
+
 # name -> builder(torch, dev) of the driver's calls: the main path's
 # shapes first, then the edges
 SANITIZE_CASES = {
@@ -4814,6 +4884,8 @@ SANITIZE_CASES = {
     "K5 batch": k5_batch,
     "BA flagship": ba_main_case(32, 2048, 8),
     "BA longscan mapping": ba_main_case(512, 16384, 8),
+    "cull flagship": cull_case(32, 512, 8192),
+    "cull longscan": cull_case(512, 512, 65536),
     "K1 37x53": k1_edge_case(1, 37, 53, 40.0),
     "K1 1x1": k1_edge_case(1, 1, 1, 1e9),
     "K1 B=3 expanded": k1_edge_case(3, 37, 53, 40.0, expand=True),
@@ -4829,6 +4901,16 @@ SANITIZE_CASES = {
     "BA kmax=1": ba_edge_case(7, 301, 1),
     "BA kmax=16": ba_edge_case(7, 301, 16),
     "BA kmax=40": ba_edge_case(4, 130, 40),
+    "cull 1500 keypoints": cull_case(64, 1500, 16384, keep_first=0),
+    "cull 5000 keypoints": cull_case(64, 5000, 65536, live=1.0),
+    "cull 16384 keypoints": cull_case(64, 16384, 65536, keep_first=0,
+                                      live=1.0),
+    "cull N=37": cull_case(40, 37, 1024, seed=4),
+    "cull tie 450/500": cull_case(48, 512, 8192, tie=(450, 500)),
+    "cull tie 1/2": cull_case(48, 512, 8192, keep_first=0, redundancy=0.5,
+                              tie=(1, 2)),
+    "cull K=1": cull_case(1, 512, 8192, keep_first=0, live=1.0),
+    "cull every slot invalid": cull_case(32, 512, 8192, live=0.0),
 }
 
 

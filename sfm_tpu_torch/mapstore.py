@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from . import native
 from .features.bits import pack_bits, unpack_bits
 from .utils.profiling import count
 from .utils.rowsum import add_rows
@@ -374,16 +375,49 @@ def cull_keyframes(kfs: KeyframeStore, n_landmarks: int, *,
     tracked points are seen by > ``min_others`` other keyframes; the first
     ``keep_first`` in frame order (the bootstrap pair) are exempt.  View
     counts are updated as keyframes go, so later decisions see earlier
-    removals."""
-    K = kfs.valid.shape[0]
+    removals.  Returns (store, culled [K] by rank in frame order).
+
+    Dispatch: a CPU store runs ``cull_ranks_plain``; a CUDA store launches
+    ``csrc/cull.cu`` (``cull_ranks_kernel``), which the host does not wait
+    for."""
     fr = kfs.frames
-    order = torch.sort(torch.where(kfs.valid, fr.frame_no, 2 ** 30),
+    order, counts = cull_order_counts(kfs.valid, fr.frame_no, fr.landmark,
+                                      fr.kp_valid, n_landmarks)
+    if kfs.valid.is_cuda:
+        ranks = cull_ranks_kernel
+    elif kfs.valid.device.type == "cpu":
+        ranks = cull_ranks_plain
+    else:
+        raise ValueError(f"cull_keyframes: unsupported device "
+                         f"{kfs.valid.device}")
+    valid, culled, _ = ranks(order, fr.landmark, fr.kp_valid, kfs.valid,
+                             counts, redundancy=redundancy,
+                             min_others=min_others, keep_first=keep_first)
+    return kfs.replace(valid=valid), culled
+
+
+def cull_order_counts(valid, frame_no, links, kp_valid, n_landmarks: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The walk's set-up on the store's device, with no host read: the
+    slots by frame number, valid ones first (stable) [K] int64, and each
+    landmark's views by valid keyframes [L] int32."""
+    order = torch.sort(torch.where(valid, frame_no, 2 ** 30),
                        stable=True).indices
-    links = fr.landmark
-    obs_all = (links >= 0) & fr.kp_valid
-    counts = _view_counts(links, obs_all & kfs.valid[:, None], n_landmarks)
+    return order, _view_counts(links, (links >= 0) & kp_valid
+                               & valid[:, None], n_landmarks)
+
+
+def cull_ranks_plain(order, links, kp_valid, valid, counts, *,
+                     redundancy: float, min_others: int, keep_first: int):
+    """The greedy walk over the ranks of ``order`` [K] (the slots by frame
+    number, valid ones first): links [K, N] int32, kp_valid [K, N], valid
+    [K], counts [L] int32 (each landmark's valid views) -> (valid [K],
+    culled [K] by rank, counts [L] after the culls)."""
+    K = valid.shape[0]
+    n_landmarks = counts.shape[0]
+    obs_all = (links >= 0) & kp_valid
     counts = torch.cat([counts, counts.new_zeros(1)])
-    valid = kfs.valid.clone()
+    valid = valid.clone()
     culled = torch.zeros(K, dtype=torch.bool, device=valid.device)
     for i in range(K):
         # six reads of the card's values an iteration: the index k in
@@ -405,4 +439,42 @@ def cull_keyframes(kfs: KeyframeStore, n_landmarks: int, *,
         counts[n_landmarks] = 0
         valid[k] = valid[k] & ~cull
         culled[i] = cull
-    return kfs.replace(valid=valid), culled
+    return valid, culled, counts[:n_landmarks]
+
+
+# csrc/cull.cu's block holds at most 16 keypoints a thread
+CULL_MAX_KEYPOINTS = 16 * 1024
+
+
+def cull_ranks_kernel(order, links, kp_valid, valid, counts, *,
+                      redundancy: float, min_others: int, keep_first: int):
+    """``cull_ranks_plain`` as one launch of ``csrc/cull.cu`` (same
+    contract, the same decisions bit for bit), with no read on the host;
+    raises above CULL_MAX_KEYPOINTS keypoints."""
+    K, N = links.shape
+    native.require_cuda("order", order, torch.int64, (K,))
+    native.require_cuda("links", links, torch.int32, (K, N))
+    native.require_cuda("kp_valid", kp_valid, torch.bool, (K, N))
+    native.require_cuda("valid", valid, torch.bool, (K,))
+    native.require_cuda("counts", counts, torch.int32, (None,))
+    dev = valid.device
+    if any(t.device != dev for t in (order, links, kp_valid, counts)):
+        raise ValueError("cull_keyframes: inputs on different devices")
+    if N > CULL_MAX_KEYPOINTS:
+        raise ValueError(f"cull_keyframes: {N} keypoints a keyframe; the "
+                         f"kernel takes at most {CULL_MAX_KEYPOINTS}")
+    L = counts.shape[0]
+    valid_out = torch.empty((K,), dtype=torch.bool, device=dev)
+    culled = torch.empty((K,), dtype=torch.bool, device=dev)
+    counts_out = torch.empty((L,), dtype=torch.int32, device=dev)
+    lib = native.library()
+    stream = native.stream_handle(dev)
+    rc = lib.sfm_cull_keyframes(
+        order.data_ptr(), links.data_ptr(), kp_valid.data_ptr(),
+        valid.data_ptr(), counts.data_ptr(), K, N, L, keep_first, min_others,
+        redundancy, valid_out.data_ptr(), culled.data_ptr(),
+        counts_out.data_ptr(), stream)
+    native.check(rc, "cull_keyframes")
+    native.count_launch("cull_keyframes", stream)
+    count("cull_kernel")
+    return valid_out, culled, counts_out

@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 LAUNCHES = {"hamming_match": 0, "patch_sampler": 0, "ba_linearize": 0,
-            "schur_apply": 0, "schur_gather": 0, "schur_scatter": 0}
+            "schur_apply": 0, "schur_gather": 0, "schur_scatter": 0,
+            "cull_keyframes": 0}
 # (kernel, stream handle) -> launches
 STREAM_LAUNCHES = {}
 BUILD_INFO = {}
@@ -61,6 +62,7 @@ _SIGNATURES = {
                          + [_P] * 7),
     "sfm_schur_apply": ("schur", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _P, _P, _P, _P]),
+    "sfm_cull_keyframes": ("cull", [_P] * 5 + [_I] * 5 + [_F] + [_P] * 4),
 }
 
 

@@ -15,6 +15,7 @@ from torch_port_util import (TEST_K, ba_scene, chip_smoke, far_ba_problem,
                              gradient_distances, match_case, noisy_copies,
                              rand_desc, to_t)
 
+from sfm_tpu_torch import mapstore as ms
 from sfm_tpu_torch import native
 from sfm_tpu_torch.ba import linearize_pallas as lp
 from sfm_tpu_torch.ba import schur_pallas as sp
@@ -23,6 +24,7 @@ from sfm_tpu_torch.ba.residuals import Observations
 from sfm_tpu_torch.features import match_pallas as mp
 from sfm_tpu_torch.features import patches_pallas as pp
 from sfm_tpu_torch.geometry.rotations import exp_so3
+from sfm_tpu_torch.utils.profiling import RECORDER
 
 pytestmark = pytest.mark.cuda
 
@@ -1214,3 +1216,67 @@ def test_k1_refuses_empty_batches(cuda):
     """An empty batch (Ns, Nt or B of 0) raises ValueError before any
     launch: the kernels would index row -1."""
     assert all(SMOKE.k1_refusals(torch, cuda).values())
+
+
+# csrc/cull.cu against the plain walk at (K, N, L): the flagship's store,
+# the long session's, and one whose rows outgrow a block of 1024 threads;
+# on chip_smoke's stores: a sweep (invalid slots interleaved, repeated
+# links within a keyframe) and two whose fractions tie the redundancy
+CULL_SHAPES = {"flagship": (32, 512, 8192), "longscan": (512, 512, 65536),
+               "1500 keypoints": (512, 1500, 65536)}
+CULL_STORES = {"sweep": (0.9, None), "tie 450/500 at 0.9": (0.9, (450, 500)),
+               "tie 1/2 at 0.5": (0.5, (1, 2))}
+
+
+@pytest.mark.parametrize("keep_first", [0, 2])
+@pytest.mark.parametrize("store", list(CULL_STORES))
+@pytest.mark.parametrize("shape", list(CULL_SHAPES))
+def test_cull_kernel_equals_plain(cuda, shape, store, keep_first):
+    """One launch gives the plain walk's valid mask, culls by rank and
+    decremented view counts bit for bit."""
+    K, N, L = CULL_SHAPES[shape]
+    redundancy, tie = CULL_STORES[store]
+    args = SMOKE.cull_inputs(torch, cuda, K, N, L, seed=K + N, tie=tie)
+    opts = dict(redundancy=redundancy, min_others=3, keep_first=keep_first)
+    n0 = native.LAUNCHES["cull_keyframes"]
+    out = ms.cull_ranks_kernel(*args, **opts)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["cull_keyframes"] == n0 + 1
+    ref = ms.cull_ranks_plain(*(a.cpu() for a in args), **opts)
+    assert int(ref[1].sum()) > 0
+    for name, a, b in zip(("valid", "culled", "counts"), out, ref):
+        assert torch.equal(a.cpu(), b), name
+
+
+def _cull_keyframe_store(dev, K, N, L, **kw):
+    links, kp_valid, valid, frame_no = SMOKE.cull_store(K, N, L, **kw)
+    kfs = ms.empty_keyframes(K, N, 16, dev)
+    fr = kfs.frames.replace(landmark=to_t(links).to(dev),
+                            kp_valid=to_t(kp_valid).to(dev),
+                            frame_no=to_t(frame_no).to(dev))
+    return kfs.replace(frames=fr, valid=to_t(valid).to(dev))
+
+
+def test_cull_keyframes_makes_no_synchronisation(cuda):
+    """``cull_keyframes`` on a CUDA store at the long session's size runs
+    under the sync debug mode "error" without raising, counts one
+    ``cull_kernel`` and no ``implicit_sync``, and culls as the CPU store
+    does."""
+    K, N, L = 512, 512, 65536
+    kfs = _cull_keyframe_store(cuda, K, N, L, seed=1)
+    ms.cull_keyframes(kfs, L)   # the build and the first launch
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with RECORDER.enabled() as trace:
+            out, culled = ms.cull_keyframes(kfs, L)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert trace.counter("cull_kernel") == 1
+    assert trace.counter("implicit_sync") == 0
+    ref, culled_ref = ms.cull_keyframes(
+        ms.tree_map(lambda x: x.cpu(), kfs), L)
+    assert int(culled_ref.sum()) > 0
+    assert torch.equal(culled.cpu(), culled_ref)
+    assert torch.equal(out.valid.cpu(), ref.valid)

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_port_util import rand_desc, to_np, to_t
+from torch_port_util import chip_smoke, rand_desc, to_np, to_t
 
 from sfm_tpu import mapstore as jms
 from sfm_tpu_torch import mapstore as ms
@@ -140,6 +140,72 @@ def test_culling_and_links(stores):
         kt2, ct = ms.cull_keyframes(kt, L, redundancy=red, min_others=1)
         _eq(ct, cj)
         _eq(kt2.valid, kj2.valid)
+
+
+def _cull_stores(links, kp_valid, valid, frame_no):
+    """One store for each package from chip_smoke's ``cull_store`` arrays;
+    the fields the cull does not read are zeros."""
+    K, N = links.shape
+    fr = dict(xy=np.zeros((K, N, 2), np.float32),
+              xy_dist=np.zeros((K, N, 2), np.float32),
+              desc=np.zeros((K, N, 16), np.int32),
+              color=np.zeros((K, N, 3), np.float32),
+              level=np.zeros((K, N), np.int32),
+              score=np.zeros((K, N), np.float32), kp_valid=kp_valid,
+              landmark=links, rvec=np.zeros((K, 3), np.float32),
+              tvec=np.zeros((K, 3), np.float32), frame_no=frame_no)
+    fj, ft = _both(jms.Frame, ms.Frame, fr)
+    return (jms.KeyframeStore(fj, jnp.asarray(valid)),
+            ms.KeyframeStore(ft, to_t(valid)))
+
+
+def _cull_both(arrays, n_landmarks, **kw):
+    kj, kt = _cull_stores(*arrays)
+    kj2, cj = jms.cull_keyframes(kj, n_landmarks, **kw)
+    kt2, ct = ms.cull_keyframes(kt, n_landmarks, **kw)
+    _eq(ct, cj)
+    _eq(kt2.valid, kj2.valid)
+    return kt, kt2, ct
+
+
+@pytest.mark.parametrize("tie,redundancy", [
+    ((450, 500), 0.9), ((450, 500), 0.9 + 1e-9), ((1, 2), 0.5)],
+    ids=["450/500 at 0.9", "450/500 at 0.9 in float32", "1/2 at 0.5"])
+def test_cull_keyframes_exact_ties(tie, redundancy):
+    """Every valid keyframe's fraction is n_red / n_obs exactly while the
+    shared landmarks keep > min_others other views: the rank culls, as the
+    JAX package's does, on frac >= redundancy in float32 (0.9 + 1e-9 is
+    0.9 in float32, and 450 / 500 rounds to it)."""
+    K, N, L = 24, 512, 2048
+    arrays = chip_smoke().cull_store(K, N, L, seed=2, tie=tie)
+    _, kt2, ct = _cull_both(arrays, L, redundancy=redundancy)
+    n_valid = int(arrays[2].sum())
+    # the walk culls until the shared landmarks are down to 4 views
+    assert int(ct.sum()) == n_valid - 4
+    assert int(kt2.valid.sum()) == 4
+
+
+def test_cull_keyframes_duplicate_links():
+    """A sweep whose keyframes link some landmarks twice: the same culls as
+    the JAX package's, and a duplicate takes two views off its landmark
+    (index_add's semantics, which csrc/cull.cu copies), so the walk's
+    counts end equal to a recount of the keyframes it left."""
+    K, N, L = 40, 64, 2048
+    arrays = chip_smoke().cull_store(K, N, L, seed=5)
+    links, kp_valid, valid, frame_no = arrays
+    seen = (links >= 0) & kp_valid
+    assert any(len(set(r[o])) < o.sum() for r, o in zip(links, seen))
+    kt, kt2, ct = _cull_both(arrays, L)
+    assert 0 < int(ct.sum()) < int(valid.sum())
+    fr = kt.frames
+    order, counts = ms.cull_order_counts(kt.valid, fr.frame_no, fr.landmark,
+                                         fr.kp_valid, L)
+    v, c, counts2 = ms.cull_ranks_plain(order, fr.landmark, fr.kp_valid,
+                                        kt.valid, counts, redundancy=0.9,
+                                        min_others=3, keep_first=2)
+    _eq(v, to_np(kt2.valid))
+    _eq(c, to_np(ct))
+    _eq(counts2, to_np(ms.kf_view_counts(kt2, L)))
 
 
 def test_insert_keyframe(stores):
