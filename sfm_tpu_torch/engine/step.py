@@ -23,7 +23,6 @@ import torch
 
 from ..config import SfMConfig
 from ..geometry.camera import optimal_new_camera_matrix
-from ..guidance import update_guidance
 from ..mapstore import add_descriptors, landmark_colors
 from ..utils.profiling import count, span, to_host
 from .bootstrap import bootstrap_step
@@ -34,7 +33,8 @@ from .reloc import reloc_step
 from .state import (NOT_INITIALIZED, RUNNING, CameraParams, SfMState,
                     init_state, make_frame, resolve_device, scalar,
                     to_gray)
-from .tracking import tracking_step
+from .tracking import (follow_reference, guide, keyframe_links,
+                       tracking_step)
 
 def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
                image: torch.Tensor, generator: Optional[torch.Generator],
@@ -58,41 +58,39 @@ def step_frame(cfg: SfMConfig, cam: CameraParams, state: SfMState,
         with span("engine.reloc"):
             state, m = reloc_step(cfg, cam, state, frame, generator)
     if cfg.track_with_flow:
-        # the branch adopted this frame as ``prev`` iff the frame numbers
-        # match (bootstrap reference advance, tracking swap, recovery)
-        took = state.prev.frame_no == frame.frame_no
-        state = state.replace(
-            prev_image=torch.where(took, grey, state.prev_image))
+        state = follow_reference(state, frame.frame_no, grey)
     if image.dim() == 3 and cfg.guidance_enabled and \
             to_host(int, state.status) == RUNNING:
         with span("engine.guidance"):
-            gs, out = update_guidance(cfg, state.guidance, image,
-                                      state.lms.xyz, state.lms.valid,
-                                      cam.Kopt, state.prev.rvec,
-                                      state.prev.tvec)
+            gs, g = guide(cfg, cam, state, image)
             state = state.replace(guidance=gs)
-            m.update(guid_centroid=out.centroid,
-                     guid_bbox_center=out.bbox_center,
-                     guid_bbox_axes=out.bbox_axes,
-                     guid_bbox_extent=out.bbox_extent)
+            m.update(g)
     return state.replace(frame_count=state.frame_count + 1), m
+
+
+def map_pending(cfg: SfMConfig, cam: CameraParams, state: SfMState):
+    """The mapping pass on ``pending_map_slot``, after the descriptor votes
+    and colours of its keyframe's links (the inline path stacks them at
+    insertion); the slot is cleared.  Returns (state, slot), slot -1 when
+    none was pending."""
+    slot = to_host(int, state.pending_map_slot)
+    state = state.replace(pending_map_slot=scalar(-1, state.status.device))
+    if slot < 0:
+        return state, slot
+    fr = state.kfs.frames
+    ids = torch.where(fr.kp_valid[slot], fr.landmark[slot], -1)
+    state = state.replace(lms=add_descriptors(
+        state.lms, ids, fr.desc[slot], colors=fr.color[slot]))
+    return mapping_pass(cfg, cam, state, slot), slot
 
 
 def run_pending_mapping(cfg: SfMConfig, cam: CameraParams,
                         state: SfMState) -> SfMState:
     """The deferred mapping pass: runs on ``pending_map_slot`` (a no-op
     when none is pending) and clears it."""
-    slot = to_host(int, state.pending_map_slot)
-    state = state.replace(pending_map_slot=scalar(-1, state.status.device))
+    st, slot = map_pending(cfg, cam, state)
     if slot < 0:
-        return state
-    # the descriptor votes and colours of the new keyframe's links (the
-    # inline path stacks them at insertion)
-    fr = state.kfs.frames
-    ids = torch.where(fr.kp_valid[slot], fr.landmark[slot], -1)
-    state = state.replace(lms=add_descriptors(
-        state.lms, ids, fr.desc[slot], colors=fr.color[slot]))
-    st = mapping_pass(cfg, cam, state, slot)
+        return st
     # the BA-optimised keyframe pose goes back into the reference frame
     # when it is that keyframe
     fr = st.kfs.frames
@@ -100,8 +98,7 @@ def run_pending_mapping(cfg: SfMConfig, cam: CameraParams,
     prev = st.prev.replace(
         rvec=torch.where(match, fr.rvec[slot], st.prev.rvec),
         tvec=torch.where(match, fr.tvec[slot], st.prev.tvec))
-    kf_links = (fr.kp_valid[slot] & (fr.landmark[slot] >= 0)).sum()
-    return st.replace(prev=prev, last_kf_tracked=kf_links.to(torch.int32))
+    return st.replace(prev=prev, last_kf_tracked=keyframe_links(st, slot))
 
 
 def _fetch(ms: list) -> list:

@@ -5,10 +5,11 @@ PnP-RANSAC the pose (the prior pose is an extra hypothesis), keep inliers,
 widen the track set by reprojecting unseen landmarks into the frame, refine
 the pose over the widened set, decide keyframe insertion, and swap frame
 buffers.  Low-match frames bump ``lost_count`` and keep the old reference
-frame; after ``max_lost_frames`` misses the engine goes LOST.  The JAX
-package's ``lax.cond`` branches are host branches here, where they skip
-work for one scan; ``fleet_tracking_step`` runs a fleet of scans in one
-batched pass with the branches as per-scan masks."""
+frame; after ``max_lost_frames`` misses the engine goes LOST.  Each
+stage works with or without a leading scan axis; ``tracking_step`` runs
+them on one scan, the JAX package's ``lax.cond`` branches as host branches
+that skip work, and ``fleet_tracking_step`` on a fleet of scans in one
+batched pass, the branches as per-scan masks."""
 
 from __future__ import annotations
 
@@ -80,6 +81,138 @@ def _kf_pose(st: SfMState, frame_no, default, which: str):
     return torch.where(match.any(-1)[..., None], val, default)
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] per scan: x [..., L, ...], idx [..., M] -> [..., M, ...]."""
+    return torch.take_along_dim(
+        x, idx.reshape(idx.shape + (1,) * (x.dim() - idx.dim())),
+        idx.dim() - 1)
+
+
+def _flow_recall(cfg: SfMConfig, ref_image, image, prev, curr, src_valid,
+                 idx, mask):
+    """Flow-assisted recall on one scan: LK-track the map-linked features
+    whose descriptor match failed and associate the endpoints with still
+    unmatched detections, in distorted pixel space.  Returns (idx, mask)."""
+    N = curr.landmark.shape[-1]
+    flow = lk_flow(ref_image, image, prev.xy_dist, src_valid,
+                   levels=cfg.flow_levels, iters=cfg.flow_iters)
+    fidx, fok = associate_flow_to_features(
+        flow.xy, flow.valid, curr.xy_dist, curr.kp_valid,
+        max_dist=cfg.flow_assoc_dist)
+    taken = _set_drop(torch.zeros(N, dtype=torch.bool, device=idx.device),
+                      torch.where(mask, idx, N), True)
+    use_flow = fok & ~mask & ~taken[torch.where(fok, fidx, 0).to(
+        torch.int64)]
+    return torch.where(use_flow, fidx, idx), mask | use_flow
+
+
+def _pnp_inputs(lms, prev, curr, src_valid, res):
+    """(landmark xyz, detection uv, valid) of the matches."""
+    safe_lm = torch.where(src_valid, prev.landmark, 0).to(torch.int64)
+    xyz = _rows(lms.xyz, safe_lm)
+    uv = _rows(curr.xy, torch.where(res.mask, res.idx, 0).to(torch.int64))
+    return xyz, uv, res.mask & _rows(lms.valid, safe_lm)
+
+
+def _pnp(cfg: SfMConfig, cam: CameraParams, generator, xyz, uv, valid,
+         prior, samples):
+    """PnP RANSAC with the prior frame's pose as a hypothesis."""
+    return ransac_pnp(
+        generator, cam.Kopt, xyz, uv, valid,
+        n_hypotheses=cfg.pnp_hypotheses, sample_size=cfg.pnp_sample_size,
+        threshold=cfg.max_reproj_error, refine_iters=cfg.pnp_refine_iters,
+        min_inliers=cfg.min_features, prior_rvec=prior.rvec,
+        prior_tvec=prior.tvec, fast_path_ratio=cfg.pnp_fast_path_ratio,
+        solver=cfg.pnp_solver, samples=samples)
+
+
+def _link_and_widen(cfg: SfMConfig, cam: CameraParams, lms, prev, curr,
+                    idx, pnp, views, rep):
+    """Link the inliers into the frame at the PnP pose, count a view where
+    ``views``, widen: (frame, lms, linked mask, tracked count)."""
+    N = curr.landmark.shape[-1]
+    curr_linked = curr.replace(
+        rvec=pnp.rvec, tvec=pnp.tvec,
+        landmark=_set_drop(curr.landmark, torch.where(pnp.inliers, idx, N),
+                           prev.landmark))
+    lms = add_views(lms, torch.where(views, prev.landmark, -1))
+    curr_wide = widen_tracks(cfg, cam, lms, curr_linked, rep)
+    linked_all = curr_wide.kp_valid & (curr_wide.landmark >= 0)
+    return curr_wide, lms, linked_all, linked_all.sum(-1)
+
+
+def _refine(cfg: SfMConfig, cam: CameraParams, lms, frame, linked, pnp, xyz,
+            uv):
+    """Pose-only refinement over the widened track set: (frame at the
+    refined pose, the PnP inliers' mean reprojection error there)."""
+    safe_all = torch.where(linked, frame.landmark, 0).to(torch.int64)
+    w_all = (linked & _rows(lms.valid, safe_all)).to(torch.float32)
+    rv, tv = pnp.rvec, pnp.tvec
+    if cfg.track_refine_iters > 0:
+        rv, tv = refine_pose(cam.Kopt, pnp.rvec, pnp.tvec,
+                             _rows(lms.xyz, safe_all), frame.xy, w_all,
+                             iters=cfg.track_refine_iters)
+    err = reprojection_errors(cam.Kopt, rv, tv, xyz, uv)
+    inl = pnp.inliers
+    mean_err = torch.sum(torch.where(inl, err, 0.0), -1) / torch.clamp(
+        inl.sum(-1), min=1)
+    return frame.replace(rvec=rv, tvec=tv), mean_err
+
+
+def _want_keyframe(cfg: SfMConfig, state: SfMState, frame_no, n_tracked,
+                   pnp):
+    lag_ok = (frame_no - state.last_kf_frame_no) >= cfg.keyframe_time_lag
+    enough = n_tracked >= cfg.keyframe_min_tracked
+    losing = n_tracked < cfg.keyframe_track_ratio * state.last_kf_tracked
+    return lag_ok & enough & losing & pnp.ok
+
+
+def _insert(st: SfMState, frame, n_tracked, votes: bool, want=None):
+    """Insert the frame as a keyframe (a fleet's scans in ``want``);
+    ``votes`` stacks its links' descriptor votes for an inline mapping
+    pass.  Returns (state, slot)."""
+    kfs, slot = insert_keyframe(st.kfs, frame, want)
+    inserted = slot >= 0
+    if votes:
+        st = st.replace(lms=add_descriptors(
+            st.lms, torch.where(inserted[..., None] & frame.kp_valid,
+                                frame.landmark, -1),
+            frame.desc, colors=frame.color))
+    return st.replace(
+        kfs=kfs,
+        last_kf_frame_no=torch.where(inserted, frame.frame_no,
+                                     st.last_kf_frame_no),
+        last_kf_tracked=torch.where(inserted, n_tracked,
+                                    st.last_kf_tracked).to(torch.int32)), slot
+
+
+def keyframe_links(state: SfMState, slot) -> torch.Tensor:
+    """The links of the keyframe in ``slot``, which the track-ratio policy
+    compares against once a mapping pass enriched them."""
+    fr = state.kfs.frames
+    return (fr.kp_valid[slot] & (fr.landmark[slot] >= 0)).sum().to(
+        torch.int32)
+
+
+def follow_reference(state: SfMState, frame_no, grey) -> SfMState:
+    """The flow reference image follows ``prev``: the step adopted the
+    frame iff the frame numbers match (bootstrap, tracking, recovery)."""
+    took = state.prev.frame_no == frame_no
+    return state.replace(prev_image=torch.where(
+        took[..., None, None], grey, state.prev_image))
+
+
+def guide(cfg: SfMConfig, cam: CameraParams, state: SfMState, rgb):
+    """Scan guidance on one scan's RGB frame: (guidance, its metrics)."""
+    gs, out = update_guidance(cfg, state.guidance, rgb, state.lms.xyz,
+                              state.lms.valid, cam.Kopt, state.prev.rvec,
+                              state.prev.tvec)
+    return gs, dict(guid_centroid=out.centroid,
+                    guid_bbox_center=out.bbox_center,
+                    guid_bbox_axes=out.bbox_axes,
+                    guid_bbox_extent=out.bbox_extent)
+
+
 def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
                   mapping_fn=None, generator=None, pnp_samples=None,
                   image=None):
@@ -90,7 +223,6 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
     with cfg.track_with_flow."""
     dev = state.status.device
     prev, curr = state.prev, frame
-    N = curr.landmark.shape[0]
 
     src_valid = prev.kp_valid & (prev.landmark >= 0)
     with span("track.match"):
@@ -99,20 +231,9 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
             min_radius=cfg.match_min_radius, max_radius=cfg.match_max_radius,
             max_distance=cfg.match_max_distance, ratio=cfg.match_ratio)
     if cfg.track_with_flow and image is not None:
-        # flow-assisted recall: LK-track the map-linked features whose
-        # descriptor match failed and associate the endpoints with still
-        # unmatched detections, in distorted pixel space
-        flow = lk_flow(state.prev_image, image, prev.xy_dist, src_valid,
-                       levels=cfg.flow_levels, iters=cfg.flow_iters)
-        fidx, fok = associate_flow_to_features(
-            flow.xy, flow.valid, curr.xy_dist, curr.kp_valid,
-            max_dist=cfg.flow_assoc_dist)
-        taken = _set_drop(torch.zeros(N, dtype=torch.bool, device=dev),
-                          torch.where(res.mask, res.idx, N), True)
-        use_flow = fok & ~res.mask & ~taken[torch.where(fok, fidx, 0).to(
-            torch.int64)]
-        res = res._replace(idx=torch.where(use_flow, fidx, res.idx),
-                           mask=res.mask | use_flow)
+        idx, mask = _flow_recall(cfg, state.prev_image, image, prev, curr,
+                                 src_valid, res.idx, res.mask)
+        res = res._replace(idx=idx, mask=mask)
     n_matches = res.mask.sum()
 
     if to_host(int, n_matches) < cfg.min_features:
@@ -125,83 +246,31 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
                            n_keyframes=st.kfs.valid.sum(), rvec=prev.rvec,
                            tvec=prev.tvec)
 
-    lms = state.lms
     with span("track.pnp"):
-        safe_lm = torch.where(src_valid, prev.landmark, 0).to(torch.int64)
-        xyz = lms.xyz[safe_lm]
-        uv = curr.xy[torch.where(res.mask, res.idx, 0).to(torch.int64)]
-        pnp = ransac_pnp(
-            generator, cam.Kopt, xyz, uv, res.mask & lms.valid[safe_lm],
-            n_hypotheses=cfg.pnp_hypotheses, sample_size=cfg.pnp_sample_size,
-            threshold=cfg.max_reproj_error, refine_iters=cfg.pnp_refine_iters,
-            min_inliers=cfg.min_features, prior_rvec=prev.rvec,
-            prior_tvec=prev.tvec, fast_path_ratio=cfg.pnp_fast_path_ratio,
-            solver=cfg.pnp_solver, samples=pnp_samples)
-
+        xyz, uv, valid = _pnp_inputs(state.lms, prev, curr, src_valid, res)
+        pnp = _pnp(cfg, cam, generator, xyz, uv, valid, prev, pnp_samples)
     with span("track.widen"):
-        # link inlier matches into the current frame
-        inl = pnp.inliers
-        curr_linked = curr.replace(
-            rvec=pnp.rvec, tvec=pnp.tvec,
-            landmark=_set_drop(curr.landmark, torch.where(inl, res.idx, N),
-                               prev.landmark))
-        lms = add_views(lms, torch.where(inl, prev.landmark, -1))
-
-        curr_wide = widen_tracks(cfg, cam, lms, curr_linked, state.rep_desc)
-        linked_all = curr_wide.kp_valid & (curr_wide.landmark >= 0)
-        n_tracked = linked_all.sum()
-
+        curr_wide, lms, linked_all, n_tracked = _link_and_widen(
+            cfg, cam, state.lms, prev, curr, res.idx, pnp, pnp.inliers,
+            state.rep_desc)
     with span("track.refine"):
-        # pose-only refinement over the full widened track set
-        safe_all = torch.where(linked_all, curr_wide.landmark, 0).to(
-            torch.int64)
-        w_all = (linked_all & lms.valid[safe_all]).to(torch.float32)
-        rv_ref, tv_ref = pnp.rvec, pnp.tvec
-        if cfg.track_refine_iters > 0:
-            rv_ref, tv_ref = refine_pose(cam.Kopt, pnp.rvec, pnp.tvec,
-                                         lms.xyz[safe_all], curr_wide.xy,
-                                         w_all, iters=cfg.track_refine_iters)
-        curr_wide = curr_wide.replace(rvec=rv_ref, tvec=tv_ref)
-        err = reprojection_errors(cam.Kopt, rv_ref, tv_ref, xyz, uv)
-        mean_err = torch.sum(torch.where(inl, err, 0.0)) / torch.clamp(
-            inl.sum(), min=1)
+        curr_wide, mean_err = _refine(cfg, cam, lms, curr_wide, linked_all,
+                                      pnp, xyz, uv)
 
     with span("track.keyframe"):
-        # keyframe policy
-        lag_ok = (curr.frame_no - state.last_kf_frame_no) \
-            >= cfg.keyframe_time_lag
-        enough = n_tracked >= cfg.keyframe_min_tracked
-        losing = n_tracked < cfg.keyframe_track_ratio * state.last_kf_tracked
-        want_kf = to_host(bool, lag_ok & enough & losing & pnp.ok)
-
+        want_kf = to_host(bool, _want_keyframe(cfg, state, curr.frame_no,
+                                               n_tracked, pnp))
         st = state.replace(lms=lms, lost_count=scalar(0, dev))
         new_prev = curr_wide
         if want_kf:
-            kfs, slot = insert_keyframe(st.kfs, curr_wide)
-            inserted = slot >= 0
-            if mapping_fn is not None:
-                st = st.replace(lms=add_descriptors(
-                    st.lms, torch.where(inserted & curr_wide.kp_valid,
-                                        curr_wide.landmark, -1),
-                    curr_wide.desc, colors=curr_wide.color))
-            st = st.replace(
-                kfs=kfs,
-                last_kf_frame_no=torch.where(inserted, curr.frame_no,
-                                             st.last_kf_frame_no),
-                last_kf_tracked=torch.where(inserted, n_tracked,
-                                            st.last_kf_tracked).to(
-                                                torch.int32))
+            st, slot = _insert(st, curr_wide, n_tracked,
+                               mapping_fn is not None)
             if mapping_fn is None:
                 st = st.replace(pending_map_slot=slot)
             elif to_host(int, slot) >= 0:
                 st = mapping_fn(st, slot)
-                # the track-ratio policy compares against the keyframe's
-                # links as the mapping pass just enriched them
-                fr2 = st.kfs.frames
                 count("implicit_sync", 2)  # two indexes by a tensor
-                st = st.replace(last_kf_tracked=(
-                    fr2.kp_valid[slot] & (fr2.landmark[slot] >= 0)).sum().to(
-                        torch.int32))
+                st = st.replace(last_kf_tracked=keyframe_links(st, slot))
             # the optimised keyframe pose becomes the new reference pose
             new_prev = curr_wide.replace(
                 rvec=_kf_pose(st, curr.frame_no, curr_wide.rvec, "rvec"),
@@ -216,13 +285,6 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState, frame,
         n_keyframes=st.kfs.valid.sum(), keyframe_added=kf_added,
         mean_reproj_err=mean_err, ba_dropped_obs=st.ba_dropped_obs,
         rvec=new_prev.rvec, tvec=new_prev.tvec)
-
-
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[b, idx[b]] for a fleet: x [B, L, ...], idx [B, M] -> [B, M, ...]."""
-    idx = idx.to(torch.int64)
-    return torch.take_along_dim(
-        x, idx.reshape(idx.shape + (1,) * (x.dim() - 2)), 1)
 
 
 def _select(mask: torch.Tensor, new, old):
@@ -254,11 +316,10 @@ def fleet_tracking_step(cfg: SfMConfig, cam: CameraParams, states: SfMState,
     recorded in ``pending_map_slot`` and the descriptor votes wait for the
     mapping pass).  ``images`` (the fleet's [B, H, W] or [B, H, W, 3]
     frames) feeds LK flow with ``track_with_flow`` and scan guidance on RGB
-    frames; both run scan by scan.  The input states are not modified."""
+    frames; both run scan by scan.  The input states are not modified.
+    The fleet records no spans."""
     dev = states.status.device
-    B = states.status.shape[0]
     prev, curr = states.prev, frames
-    N = curr.landmark.shape[-1]
     running = states.status == RUNNING
     grey = None
     if images is not None:
@@ -270,110 +331,53 @@ def fleet_tracking_step(cfg: SfMConfig, cam: CameraParams, states: SfMState,
         min_radius=cfg.match_min_radius, max_radius=cfg.match_max_radius,
         max_distance=cfg.match_max_distance, ratio=cfg.match_ratio)
     if cfg.track_with_flow and grey is not None:
-        # flow-assisted recall, scan by scan on the RUNNING scans
         idx, mask = res.idx.clone(), res.mask.clone()
         for b in torch.nonzero(running).flatten().tolist():
-            flow = lk_flow(states.prev_image[b], grey[b], prev.xy_dist[b],
-                           src_valid[b], levels=cfg.flow_levels,
-                           iters=cfg.flow_iters)
-            fidx, fok = associate_flow_to_features(
-                flow.xy, flow.valid, curr.xy_dist[b], curr.kp_valid[b],
-                max_dist=cfg.flow_assoc_dist)
-            taken = _set_drop(torch.zeros(N, dtype=torch.bool, device=dev),
-                              torch.where(mask[b], idx[b], N), True)
-            use_flow = fok & ~mask[b] & ~taken[torch.where(
-                fok, fidx, 0).to(torch.int64)]
-            idx[b] = torch.where(use_flow, fidx, idx[b])
-            mask[b] = mask[b] | use_flow
+            idx[b], mask[b] = _flow_recall(
+                cfg, states.prev_image[b], grey[b], index_state(prev, b),
+                index_state(curr, b), src_valid[b], idx[b], mask[b])
         res = res._replace(idx=idx, mask=mask)
     n_matches = res.mask.sum(-1)
     enough_matches = n_matches >= cfg.min_features
     take = running & enough_matches           # the tracking branch
     lost_now = running & ~enough_matches      # the lost branch
 
-    lms = states.lms
-    safe_lm = torch.where(src_valid, prev.landmark, 0)
-    xyz = _rows(lms.xyz, safe_lm)
-    uv = _rows(curr.xy, torch.where(res.mask, res.idx, 0))
-    pnp_valid = res.mask & _rows(lms.valid, safe_lm)
+    xyz, uv, valid = _pnp_inputs(states.lms, prev, curr, src_valid, res)
     if pnp_samples is None:
         pnp_samples = sample_masked_fleet(
-            generators, pnp_valid, cfg.pnp_hypotheses,
+            generators, valid, cfg.pnp_hypotheses,
             3 if cfg.pnp_solver == "p3p" else cfg.pnp_sample_size)
-    pnp = ransac_pnp(
-        None, cam.Kopt, xyz, uv, pnp_valid,
-        n_hypotheses=cfg.pnp_hypotheses, sample_size=cfg.pnp_sample_size,
-        threshold=cfg.max_reproj_error, refine_iters=cfg.pnp_refine_iters,
-        min_inliers=cfg.min_features, prior_rvec=prev.rvec,
-        prior_tvec=prev.tvec, fast_path_ratio=cfg.pnp_fast_path_ratio,
-        solver=cfg.pnp_solver, samples=pnp_samples)
+    pnp = _pnp(cfg, cam, None, xyz, uv, valid, prev, pnp_samples)
+    # only the tracking branch's scans count views
+    curr_wide, lms, linked_all, n_tracked = _link_and_widen(
+        cfg, cam, states.lms, prev, curr, res.idx, pnp,
+        pnp.inliers & take[:, None], states.rep_desc)
+    curr_wide, mean_err = _refine(cfg, cam, lms, curr_wide, linked_all, pnp,
+                                  xyz, uv)
 
-    # link inlier matches into the current frame; only the tracking
-    # branch's scans count views
-    inl = pnp.inliers
-    curr_linked = curr.replace(
-        rvec=pnp.rvec, tvec=pnp.tvec,
-        landmark=_set_drop(curr.landmark, torch.where(inl, res.idx, N),
-                           prev.landmark))
-    lms = add_views(lms, torch.where(inl & take[:, None], prev.landmark, -1))
-
-    curr_wide = widen_tracks(cfg, cam, lms, curr_linked, states.rep_desc)
-    linked_all = curr_wide.kp_valid & (curr_wide.landmark >= 0)
-    n_tracked = linked_all.sum(-1)
-
-    safe_all = torch.where(linked_all, curr_wide.landmark, 0)
-    w_all = (linked_all & _rows(lms.valid, safe_all)).to(torch.float32)
-    rv_ref, tv_ref = pnp.rvec, pnp.tvec
-    if cfg.track_refine_iters > 0:
-        rv_ref, tv_ref = refine_pose(cam.Kopt, pnp.rvec, pnp.tvec,
-                                     _rows(lms.xyz, safe_all), curr_wide.xy,
-                                     w_all, iters=cfg.track_refine_iters)
-    curr_wide = curr_wide.replace(rvec=rv_ref, tvec=tv_ref)
-    err = reprojection_errors(cam.Kopt, rv_ref, tv_ref, xyz, uv)
-    mean_err = torch.sum(torch.where(inl, err, 0.0), -1) / torch.clamp(
-        inl.sum(-1), min=1)
-
-    # keyframe policy
-    lag_ok = (curr.frame_no - states.last_kf_frame_no) \
-        >= cfg.keyframe_time_lag
-    enough = n_tracked >= cfg.keyframe_min_tracked
-    losing = n_tracked < cfg.keyframe_track_ratio * states.last_kf_tracked
-    want_kf = take & lag_ok & enough & losing & pnp.ok
-    kfs, slot = insert_keyframe(states.kfs, curr_wide, want_kf)
-    inserted = slot >= 0
-    if mapping_fn is not None:
-        lms = add_descriptors(
-            lms, torch.where(inserted[:, None] & curr_wide.kp_valid,
-                             curr_wide.landmark, -1),
-            curr_wide.desc, colors=curr_wide.color)
+    want_kf = take & _want_keyframe(cfg, states, curr.frame_no, n_tracked,
+                                    pnp)
     lost = states.lost_count + 1
     st = states.replace(
-        lms=lms, kfs=kfs,
+        lms=lms,
         status=torch.where(lost_now & (lost > cfg.max_lost_frames),
                            LOST, states.status).to(torch.int32),
         lost_count=torch.where(take, 0, torch.where(
-            lost_now, lost, states.lost_count)).to(torch.int32),
-        last_kf_frame_no=torch.where(inserted, curr.frame_no,
-                                     states.last_kf_frame_no),
-        last_kf_tracked=torch.where(inserted, n_tracked,
-                                    states.last_kf_tracked).to(torch.int32))
+            lost_now, lost, states.lost_count)).to(torch.int32))
+    st, slot = _insert(st, curr_wide, n_tracked, mapping_fn is not None,
+                       want_kf)
     if mapping_fn is None:
         st = st.replace(pending_map_slot=torch.where(
             want_kf, slot, states.pending_map_slot).to(torch.int32))
     else:
-        todo = torch.nonzero(inserted).flatten().tolist()
+        todo = torch.nonzero(slot >= 0).flatten().tolist()
         if todo:
             st = tree_map(torch.clone, st)
         for b in todo:
             sl = int(slot[b])
             sub = mapping_fn(index_state(st, b), sl)
-            # the track-ratio policy compares against the keyframe's links
-            # as the mapping pass just enriched them
-            fr2 = sub.kfs.frames
-            sub = sub.replace(last_kf_tracked=(
-                fr2.kp_valid[sl] & (fr2.landmark[sl] >= 0)).sum().to(
-                    torch.int32))
-            write_scan(st, b, sub)
+            write_scan(st, b, sub.replace(
+                last_kf_tracked=keyframe_links(sub, sl)))
     # the optimised keyframe pose becomes the new reference pose
     new_prev = curr_wide.replace(
         rvec=torch.where(want_kf[:, None], _kf_pose(
@@ -386,10 +390,7 @@ def fleet_tracking_step(cfg: SfMConfig, cam: CameraParams, states: SfMState,
                                       0),
                     frame_count=states.frame_count + running.to(torch.int32))
     if cfg.track_with_flow and grey is not None:
-        # the flow reference image follows the reference frame
-        took = st.prev.frame_no == curr.frame_no
-        st = st.replace(prev_image=torch.where(took[:, None, None], grey,
-                                               st.prev_image))
+        st = follow_reference(st, curr.frame_no, grey)
     zero = torch.zeros((), device=dev)
     m = metrics(
         curr, status=st.status,
@@ -405,16 +406,10 @@ def fleet_tracking_step(cfg: SfMConfig, cam: CameraParams, states: SfMState,
         tvec=torch.where(running[:, None], st.prev.tvec, zero))
     if images is not None and images.dim() == 4 and cfg.guidance_enabled:
         # scan guidance on every scan that ends RUNNING, scan by scan
-        guid = st.guidance.map(torch.clone)
+        st = st.replace(guidance=st.guidance.map(torch.clone))
         for b in torch.nonzero(st.status == RUNNING).flatten().tolist():
-            gs, out = update_guidance(
-                cfg, index_state(guid, b), images[b], st.lms.xyz[b],
-                st.lms.valid[b], cam.Kopt, st.prev.rvec[b], st.prev.tvec[b])
-            write_scan(guid, b, gs)
-            for name, v in (("guid_centroid", out.centroid),
-                            ("guid_bbox_center", out.bbox_center),
-                            ("guid_bbox_axes", out.bbox_axes),
-                            ("guid_bbox_extent", out.bbox_extent)):
+            gs, g = guide(cfg, cam, index_state(st, b), images[b])
+            write_scan(st.guidance, b, gs)
+            for name, v in g.items():
                 m[name][b] = v
-        st = st.replace(guidance=guid)
     return st, m

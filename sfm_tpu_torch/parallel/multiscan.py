@@ -32,10 +32,10 @@ from ..engine.loop import LoopProbe, _host, _start_frame, build_loop_probe, \
 from ..engine.mapping import mapping_pass
 from ..engine.state import (RUNNING, CameraParams, SfMState, index_state,
                             init_batched_state, make_frames, resolve_device,
-                            scalar, write_scan)
-from ..engine.step import step_frame
+                            write_scan)
+from ..engine.step import map_pending, step_frame
 from ..engine.tracking import fleet_tracking_step
-from ..mapstore import add_descriptors, tree_map
+from ..mapstore import tree_map
 from ..utils import PhaseTimer
 from .hosts import axis_shard, rank_device
 
@@ -64,15 +64,7 @@ def map_one(cfg: SfMConfig, cam: CameraParams, state: SfMState) -> SfMState:
     optimised keyframe pose is not written back into ``prev`` and
     ``last_kf_tracked`` keeps its insertion-time count (as the JAX
     package's fleet does)."""
-    slot = int(state.pending_map_slot)
-    state = state.replace(pending_map_slot=scalar(-1, state.status.device))
-    if slot < 0:
-        return state
-    fr = state.kfs.frames
-    ids = torch.where(fr.kp_valid[slot], fr.landmark[slot], -1)
-    state = state.replace(lms=add_descriptors(
-        state.lms, ids, fr.desc[slot], colors=fr.color[slot]))
-    return mapping_pass(cfg, cam, state, slot)
+    return map_pending(cfg, cam, state)[0]
 
 
 def build_batched_step(cfg: SfMConfig, cam: CameraParams, seed: int = 7,

@@ -15,7 +15,9 @@ from torch_port_util import to_np, to_t
 
 from sfm_tpu_torch.ba.core import compact_landmarks
 from sfm_tpu_torch.config import SfMConfig
+from sfm_tpu_torch.engine import SfMEngine, tracking
 from sfm_tpu_torch.engine.loop import LoopProbe
+from sfm_tpu_torch.engine.mapping import mapping_pass
 from sfm_tpu_torch.engine.state import (LOST, RUNNING, CameraParams,
                                         index_state, init_batched_state,
                                         init_state, make_frame, make_frames,
@@ -270,6 +272,72 @@ def test_fleet_isolation():
                 assert torch.equal(m[k][:, b], n[k][:, 0]), (b, k)
         assert_trees_equal(state_to_numpy(index_state(fleet.states, b)),
                            state_to_numpy(index_state(one.states, 0)))
+
+
+@pytest.mark.parametrize("case,frame_i", [("plain", 7), ("flow", 7),
+                                          ("keyframe", 5)])
+def test_fleet_of_one_equals_tracking_step(case, frame_i, monkeypatch):
+    """The two tracking drivers held to each other: ``fleet_tracking_step``
+    on a fleet of one against ``tracking_step`` on the same RUNNING state
+    and frame of scan 0, with inline mapping and the same PnP samples
+    injected into both, on a plain frame, a frame tracked with LK flow,
+    and a frame that inserts a keyframe and maps it.  Status, keyframe
+    flag, counts, links, view counts and the map exactly; the PnP poses
+    within 1e-5, as the batched PnP above.  The refined poses within
+    1e-3 rad / m, as against the JAX fleet: on the plain frame the pose
+    refinement's four iterations take the PnP poses' 6.9e-7 m apart to
+    3.6e-4 m apart (from one start they end 2.4e-7 m apart; measured on
+    a CPU)."""
+    cfg = dataclasses.replace(CFG, track_with_flow=case == "flow")
+    c = cam()
+    eng = SfMEngine(K, (120, 160), config=cfg, device="cpu")
+    imgs = to_t(np.concatenate([ch[:, 0] for ch in chunks()]))
+    for img in imgs[:frame_i]:
+        eng.add_frame(img)
+    st, img = eng.state, imgs[frame_i]
+    assert int(st.status) == RUNNING
+    frame = make_frame(cfg, c, img, st.frame_count)
+    mapping_fn = lambda s, slot: mapping_pass(cfg, c, s, slot)  # noqa: E731
+    # each PnP call's validity mask and result
+    seen, real = [], tracking.ransac_pnp
+
+    def pnp(*a, **kw):
+        out = real(*a, **kw)
+        seen.append((a[4], out))
+        return out
+    monkeypatch.setattr(tracking, "ransac_pnp", pnp)
+    # the samples: drawn once over the validity mask the PnP is given
+    tracking.tracking_step(cfg, c, st, frame, mapping_fn,
+                           torch.Generator().manual_seed(0), image=img)
+    samples = sample_masked(torch.Generator().manual_seed(1), seen[0][0],
+                            cfg.pnp_hypotheses, cfg.pnp_sample_size)
+
+    st_s, m_s = tracking.tracking_step(cfg, c, st, frame, mapping_fn,
+                                       pnp_samples=samples, image=img)
+    st_f, m_f = tracking.fleet_tracking_step(
+        cfg, c, stack_states([st]), make_frames(cfg, c, img[None],
+                                                st.frame_count[None]),
+        None, mapping_fn, pnp_samples=samples[None], images=img[None])
+    (_, pnp_s), (_, pnp_f) = seen[1:]
+    for x, y in zip(pnp_f[:2], pnp_s[:2]):
+        torch.testing.assert_close(x[0], y, rtol=0, atol=1e-5)
+    for x, y in zip(pnp_f[2:], pnp_s[2:]):
+        assert torch.equal(x[0], y)
+    assert bool(m_s["keyframe_added"]) == (case == "keyframe")
+    for k in ("status", "keyframe_added", "n_matches", "n_inliers",
+              "n_tracked", "n_landmarks", "n_keyframes"):
+        assert torch.equal(m_f[k][0], m_s[k]), k
+    for k in ("rvec", "tvec", "mean_reproj_err"):
+        torch.testing.assert_close(m_f[k][0], m_s[k], rtol=0, atol=1e-3)
+    one = index_state(st_f, 0)
+    for name in ("status", "lost_count", "last_kf_frame_no",
+                 "last_kf_tracked", "pending_map_slot"):
+        assert torch.equal(getattr(one, name), getattr(st_s, name)), name
+    assert torch.equal(one.prev.landmark, st_s.prev.landmark)
+    assert torch.equal(one.kfs.valid, st_s.kfs.valid)
+    assert torch.equal(one.kfs.frames.landmark, st_s.kfs.frames.landmark)
+    assert torch.equal(one.lms.valid, st_s.lms.valid)
+    assert torch.equal(one.lms.n_views, st_s.lms.n_views)
 
 
 def test_lost_mid_chunk_drops_the_rest_of_the_chunk():
