@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dist        # the dist phase alone
     python3 chip_smoke.py --raytrace    # the raytrace and anchor phases
     python3 chip_smoke.py --sanitize-target   # the kernel driver alone
+    python3 chip_smoke.py --pose        # the pose refinement kernel alone
 
 1. requires CUDA (exits non-zero without a card) and prints the card's
    name and power limit;
@@ -202,6 +203,16 @@
    pipeline's scan likewise.  This comes last
    because a profiler session leaves the host slower for the host-bound
    phases after it (and a long one disturbs the sessions after it);
+   "pose" (``run_pose``, with the kernel checks): csrc/pose.cu at the
+   main path's calls (POSE_SHAPES: the tracking PnP's gated rounds and
+   the refinement at 512 matches, the fleet's 64 x 512, relocalisation
+   at 8192 slots and the loop probe at 65536) against its plain version
+   on the card, every pose's final cost by the pose check
+   (``pose_within``), its device time beside its bound, the host's time
+   to return from the call and the plain version's synchronised time;
+   then the same check on far-started problems, which the kernel must
+   pass and two planted faults (one iteration fewer, the first gated
+   round alone) must fail (``pose_faults``);
 13a. "helpers", on the FLAGSHIP scan's final engine: ``match_pairs`` on
    K1's MatchResult at the tracking shape (512x512) against the plain
    matcher's pairs, exactly; ``run_ba`` in POSE_ONLY and STRUCT_ONLY on
@@ -218,7 +229,9 @@
    scan's two shapes and at the pod's two shapes, then K1 at the long
    scan's call sites, at the
    ring's loop probe and at the fleet's two sites, then K5 at the fleet's
-   shape, then K1 and K5 at the sharded fleet's per-rank batch), then the
+   shape, then K1 and K5 at the sharded fleet's per-rank batch, then the
+   pose kernel at POSE_SHAPES, with the launches of the phase that makes
+   each call, counted by call site and shape, and by phase), then the
    card line, then {"ok": true, "device":
    {...}} as the last line.
 With ``--calls DIR`` it only times K1's whole call at its five shapes and
@@ -233,9 +246,10 @@ runs one FLAGSHIP single scan (for the rate beside the fleet's) and the
 fleet phase N times, likewise.  ``--dist`` runs the dist phase and its
 kernel rows (the pod's two shapes, the sharded fleet's batch) alone, and
 ``--raytrace`` the raytrace phase (with its acceptance step) and the
-anchor phase alone.  ``--sanitize-target`` runs only the kernel driver
-and prints its launches by function as JSON (no card line): the program
-to run under compute-sanitizer, e.g. ``PYTORCH_NO_CUDA_MEMORY_CACHING=1
+anchor phase alone; ``--pose`` the pose phase alone.
+``--sanitize-target`` runs only the kernel driver and prints its
+launches by function as JSON (no card line): the program to run under
+compute-sanitizer, e.g. ``PYTORCH_NO_CUDA_MEMORY_CACHING=1
 compute-sanitizer --tool memcheck --error-exitcode 99 --kernel-name
 'regex=dense_kernel|cells_kernel|init_keys|epilogue_kernel|patch_kernel|landmark_phase|camera_phase'
 python3 chip_smoke.py --sanitize-target``.
@@ -1202,6 +1216,44 @@ def count_k1_sites(native, record=None, record_sites=None):
             return dispatch(*a)
         mp.hamming_match = recorded
         undo.append((mp, "hamming_match", dispatch))
+
+    def restore():
+        for mod, name, real in undo:
+            setattr(mod, name, real)
+    return sites, restore
+
+
+def count_pose_sites(native):
+    """Wrap the pose refinement's entries in the engine modules that call
+    them (the tracking PnP and refinement, relocalisation, the loop probe)
+    so that the pose kernel's launches are also counted by calling
+    function and shape: ("module.function", poses, points) -> launches.
+    Returns the counts and a function that undoes the wrapping.  The
+    wrapper counts what the kernel's own counter adds, nothing else."""
+    import importlib
+    sites, undo = {}, []
+    # (module, entry, the argument whose shape is [..., points])
+    for stem, name, arg in (("tracking", "ransac_pnp", 4),
+                            ("tracking", "refine_pose", 5),
+                            ("reloc", "ransac_pnp", 4),
+                            ("loop", "ransac_pnp", 4)):
+        mod = importlib.import_module(f"sfm_tpu_torch.engine.{stem}")
+        real = getattr(mod, name)
+
+        def wrapped(*a, _real=real, _stem=stem, _arg=arg, **kw):
+            site = f"{_stem}.{sys._getframe(1).f_code.co_name}"
+            lead = a[_arg].shape[:-1]
+            if _arg == 5:  # refine_pose: the pose may carry the batch
+                lead = np.broadcast_shapes(lead, a[1].shape[:-1])
+            key = (site, int(np.prod(lead)), a[_arg].shape[-1])
+            n0 = native.LAUNCHES["pose_refine"]
+            out = _real(*a, **kw)
+            n = native.LAUNCHES["pose_refine"] - n0
+            if n:
+                sites[key] = sites.get(key, 0) + n
+            return out
+        setattr(mod, name, wrapped)
+        undo.append((mod, name, real))
 
     def restore():
         for mod, name, real in undo:
@@ -4508,13 +4560,15 @@ SANITIZE_FUNCTIONS = ("match.cu dense_kernel", "match.cu cells_kernel",
                       "linearize.cu landmark_phase",
                       "linearize.cu camera_phase",
                       "schur.cu landmark_phase", "schur.cu camera_phase",
-                      "cull.cu cull_keyframes_kernel")
+                      "cull.cu cull_keyframes_kernel",
+                      "pose.cu pose_refine_kernel")
 # compute-sanitizer's tools, and its kernel filter: the port's functions
 # only (their mangled names hold these), none of PyTorch's
 SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 SANITIZER_FILTER = ("regex=dense_kernel|cells_kernel|init_keys|"
                     "epilogue_kernel|patch_kernel|landmark_phase|"
-                    "camera_phase|cull_keyframes_kernel")
+                    "camera_phase|cull_keyframes_kernel|"
+                    "pose_refine_kernel")
 SANITIZER_TIMEOUT = 600.0
 # bytes of poison on each side of every tensor a guarded call reads or
 # the wrappers allocate, and the two poisons (0xFF: NaN in f32, -1 in
@@ -4874,6 +4928,318 @@ def cull_case(K, N, L, keep_first=2, redundancy=0.9, min_others=3, **kw):
     return build
 
 
+# ransac_pnp's inlier threshold in the port's configurations
+# (max_reproj_error), in pixels
+POSE_THRESHOLD = 7.0
+
+
+def _rodrigues(rv):
+    """Rotation matrices [P, 3, 3] of angle-axis rv [P, 3], in float64."""
+    theta = np.linalg.norm(rv, axis=-1)[:, None, None]
+    k = rv / np.maximum(theta[:, 0], 1e-300)
+    hat = np.zeros((len(rv), 3, 3))
+    hat[:, 0, 1], hat[:, 0, 2] = -k[:, 2], k[:, 1]
+    hat[:, 1, 0], hat[:, 1, 2] = k[:, 2], -k[:, 0]
+    hat[:, 2, 0], hat[:, 2, 1] = -k[:, 1], k[:, 0]
+    return np.eye(3) + np.sin(theta) * hat + (1 - np.cos(theta)) * hat @ hat
+
+
+def pose_problem(P, N, *, seed=0, live=0.9, outliers=0.2, angle=None,
+                 degenerate=0, start=(0.002, 0.004), K=K):
+    """P tracking problems of N 2D-3D matches, in numpy: (rvec, tvec [P,
+    3] the start, xyz [P, N, 3], uv [P, N, 2], valid [P, N], w [P, N] the
+    valid inliers as float32).  Points 2-8 units in front of a camera at
+    a pose of angle ``angle`` (default up to 0.3 rad) about a random
+    axis; inliers within 1.5 px of their projection, a share
+    ``outliers`` moved 20-200 px off; the start 0.002 rad and 0.004 units
+    (a few pixels) from the truth, so the inliers are within the
+    threshold at the start and the outliers far outside it at any pose
+    between.  ``degenerate`` > 0: that many points of each problem at
+    camera depth ~0 (weight 0; valid) and as many behind the camera (its
+    mirrored projection; weight 1)."""
+    g = np.random.default_rng(seed)
+    axis = g.normal(size=(P, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    ang = g.uniform(0.0, 0.3, P) if angle is None else np.full(P, angle)
+    rv, tv = axis * ang[:, None], g.normal(0.0, 0.3, (P, 3))
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    z = g.uniform(2.0, 8.0, (P, N))
+    px = g.uniform([20.0, 20.0], [620.0, 460.0], (P, N, 2))
+    cam = np.stack([(px[..., 0] - cx) / fx * z, (px[..., 1] - cy) / fy * z,
+                    z], -1)
+    d = degenerate
+    if d:
+        cam[:, :d, 2] = g.choice([0.0, 1e-10, -1e-8, 3e-7], (P, d))
+        cam[:, d:2 * d] *= -1.0
+    R = _rodrigues(rv)
+    xyz = np.einsum("pji,pnj->pni", R, cam - tv[:, None, :])
+    uv = px + np.clip(g.normal(0.0, 0.5, (P, N, 2)), -1.5, 1.5)
+    out = g.uniform(0, 1, (P, N)) < outliers
+    out[:, :2 * d] = False
+    far, phi = g.uniform(20.0, 200.0, (P, N)), g.uniform(0, 2 * np.pi, (P, N))
+    uv[out] += (far * np.stack([np.cos(phi), np.sin(phi)], 0))[:, out].T
+    valid = g.uniform(0, 1, (P, N)) < live
+    w = valid & ~out
+    if d:
+        valid[:, :2 * d] = True
+        w[:, :d], w[:, d:2 * d] = False, True
+    start_rv = rv + g.normal(0.0, start[0], (P, 3))
+    start_tv = tv + g.normal(0.0, start[1], (P, 3))
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    return (f32(start_rv), f32(start_tv), f32(xyz), f32(uv), valid,
+            f32(w))
+
+
+def pose_inputs(torch, dev, P, N, gated, *, shared=False, **kw):
+    """A pose kernel call's tensor arguments on ``pose_problem(**kw)``:
+    (K, rvec, tvec, xyz, uv, valid if ``gated`` else w).  P = 1 is the
+    tracking call's unbatched form; ``shared``: the P poses against the
+    first problem's points (a batch stride of 0)."""
+    rv, tv, xyz, uv, valid, w = pose_problem(P, N, **kw)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    pts = (xyz, uv, valid if gated else w)
+    if P == 1 or shared:
+        pts = tuple(a[0] for a in pts)
+    if P == 1:
+        rv, tv = rv[0], tv[0]
+    return (t(K), t(rv), t(tv)) + tuple(t(a) for a in pts)
+
+
+def pose_fns(gated, iters):
+    """(kernel, plain) on ``pose_inputs``' arguments: ``refined`` (the
+    gated rounds) or ``refine_pose``."""
+    from sfm_tpu_torch import ransac
+    from sfm_tpu_torch.geometry import pnp
+    if gated:
+        gate = dict(threshold=POSE_THRESHOLD, iters=iters)
+        return (lambda *a: ransac.refined_kernel(*a, **gate),
+                lambda *a: ransac.refined_plain(*a, **gate))
+    return (lambda *a: pnp.refine_pose_kernel(*a, iters),
+            lambda *a: pnp.refine_pose_plain(*a, iters))
+
+
+def pose_case(P, N, gated, iters, **kw):
+    """The pose refinement at P poses of N points: rvec and tvec (gated,
+    also the inliers as 0/1 and their count), no farther from the plain
+    version run in float64 than twice the float32 plain version, plus
+    1e-6 of the largest entry (sanitize_check's rule)."""
+    def build(torch, dev):
+        kernel, plain = pose_fns(gated, iters)
+        as_poses = lambda out: tuple(  # noqa: E731
+            o.to(out[0].dtype) for o in out)
+        return [_sub(
+            f"pose {'gated' if gated else 'refine'} {P}x{N} x{iters}"
+            + "".join(f" {k} {v:g}" for k, v in kw.items()),
+            pose_inputs(torch, dev, P, N, gated, **kw),
+            lambda *a: as_poses(kernel(*a)), lambda *a: as_poses(plain(*a)),
+            ("pose.cu pose_refine_kernel",), False)]
+    return build
+
+
+# the pose kernel's calls on the main path, label -> (P, N, gated, iters,
+# share of valid points): the tracking PnP's gated rounds and the
+# widened-track refinement at 512 matches, the fleet's 64 scans, and
+# relocalisation's match of every landmark slot (FLAGSHIP's 8192,
+# LONGSCAN's 65536; at most 512 of them matched)
+POSE_SHAPES = {
+    "PnP gated 512, 2 x 6": (1, 512, True, 6, 0.9),
+    "refine 512, 4": (1, 512, False, 4, 0.9),
+    "fleet PnP gated 64 x 512, 2 x 6": (64, 512, True, 6, 0.9),
+    "fleet refine 64 x 512, 4": (64, 512, False, 4, 0.9),
+    "reloc gated 8192, 2 x 6": (1, 8192, True, 6, 0.06),
+    "loop probe gated 65536, 2 x 6": (1, 65536, True, 6, 0.02),
+}
+# the phase whose launches each POSE_SHAPES call is, and its call sites
+# (``count_pose_sites``): the FLAGSHIP scan's tracking, the fleet's,
+# relocalisation in the live phase (FLAGSHIP's 8192 slots) and the
+# ring's loop probes and relocalisation (RING's 65536)
+POSE_RUNS = {
+    "PnP gated 512, 2 x 6": ("flagship", ("tracking._pnp",)),
+    "refine 512, 4": ("flagship", ("tracking._refine",)),
+    "fleet PnP gated 64 x 512, 2 x 6": ("fleet", ("tracking._pnp",)),
+    "fleet refine 64 x 512, 4": ("fleet", ("tracking._refine",)),
+    "reloc gated 8192, 2 x 6": ("live", ("reloc.reloc_step",)),
+    "loop probe gated 65536, 2 x 6": ("ring", ("loop.probe",
+                                               "reloc.reloc_step")),
+}
+
+
+def pose_launches(label, by_phase):
+    """(the launches of POSE_SHAPES' call ``label`` in its phase, and by
+    phase) from ``count_pose_sites``' counts by phase."""
+    P, N = POSE_SHAPES[label][:2]
+    phase, sites = POSE_RUNS[label]
+    counts = {ph: sum(v for (site, p, n), v in c.items()
+                      if site in sites and (p, n) == (P, N))
+              for ph, c in by_phase.items()}
+    return counts.get(phase, 0), {ph: v for ph, v in counts.items() if v}
+# floating-point operations a point costs the pose kernel in one pass
+# (csrc/pose.cu's pass: R X + t 18, the projection and its residual 10,
+# the cost 6, the inverse depth, residual and Jacobian blocks 57, the 21
+# entries of H and 6 of g 108), and in the gated mode's last pass (R X +
+# t, the projection and the error, 32)
+POSE_OPS_PER_POINT = 199
+POSE_FINAL_OPS_PER_POINT = 32
+
+
+def pose_bound(args, gated, iters):
+    """``bound`` of one pose kernel call: its inputs read once, its
+    outputs written once, every pass's operations (the gated mode's two
+    rounds: csrc/pose.cu's kRounds)."""
+    K_, rv, tv, xyz, uv, wv = args
+    P, N = rv.numel() // 3, xyz.shape[-2]
+    passes = 2 * (iters + 1) if gated else iters + 1
+    ops = P * N * (passes * POSE_OPS_PER_POINT
+                   + (POSE_FINAL_OPS_PER_POINT if gated else 0))
+    written = 2 * P * 3 * 4 + (P * N + 8 * P if gated else 0)
+    return bound(nbytes(K_, rv, tv, xyz, uv, wv) + written, ops)
+
+
+def pose_cost(torch, args, rv, tv, w):
+    """The weighted squared reprojection error of poses (rv, tv) in
+    float64, [P]."""
+    from sfm_tpu_torch.geometry.camera import project
+    K_, _, _, xyz, uv, _ = (a.double() for a in args)
+    res = (project(K_, rv.double(), tv.double(), xyz) - uv) * \
+        w.double()[..., None]
+    return (res ** 2).sum((-2, -1))
+
+
+# the pose check: every pose's final cost (float64, on the float64 plain
+# version's weights) no farther from the float64 plain version's than
+# twice the float32 plain version's, plus this share of it.  The float32
+# cost cannot tell a step along a problem's flattest direction from its
+# own rounding (a residual of ~0.5 px is the difference of pixels of
+# hundreds), so float32 refinements that sum in another order keep or
+# refuse such a step apart and end up to ~2e-5 apart in the pose, while
+# their costs stay close: the plain version on its points in three other
+# orders, on 1,500 problems of ``pose_problem`` (near and far starts, 512
+# to 8192 points), read at most 8.9e-6 of the cost from the float64 plain
+# version's, and its poses failed the pose rule of ``sanitize_check`` on
+# 2 of 60 outputs.  Dropping the last iteration, or the gated mode's
+# second round, misses by up to 1e1 of the cost on far starts
+# (``pose_faults``).
+POSE_COST_TOL = 3e-5
+# far starts (rad, units off the truth), at which the refinement's last
+# iteration (4, from 0.15 rad) and the gated mode's second round (round
+# one's gate at 0.004 rad misses inliers) still move the answer
+POSE_FAR = {False: (0.15, 0.3), True: (0.004, 0.008)}
+
+
+def pose_within(torch, args, out, ref, ref64, gated):
+    """[P] bool: each pose of ``out`` by the pose check (POSE_COST_TOL)
+    against the float32 plain version's ``ref`` and the float64 one's
+    ``ref64``."""
+    w = ref64[2] if gated else args[5]
+    c, c32, c64 = (pose_cost(torch, args, o[0], o[1], w)
+                   for o in (out, ref, ref64))
+    return (c - c64).abs() <= 2 * (c32 - c64).abs() + POSE_COST_TOL * c64
+
+
+def pose_faults(torch, dev, P=64, N=512):
+    """The pose check on P problems started far (POSE_FAR) at the main
+    path's iteration counts: the kernel passes it for every pose, and two
+    planted faults fail it for some: the refinement with one iteration
+    fewer, and the gated mode's first round alone (its weights the gate
+    at the start, then ``refine_pose``).  Returns, by name, the share of
+    poses that fail the check."""
+    from sfm_tpu_torch.geometry import pnp
+    shares = {}
+    for gated, iters in ((False, 4), (True, 6)):
+        args = pose_inputs(torch, dev, P, N, gated, start=POSE_FAR[gated],
+                           seed=17)
+        kernel, plain = pose_fns(gated, iters)
+        ref, ref64 = plain(*args), plain(*_to_f64(torch, *args))
+        K_, rv, tv, xyz, uv, wv = args
+        if gated:
+            gate = (pnp.reprojection_errors(K_, rv, tv, xyz, uv)
+                    < POSE_THRESHOLD) & wv
+            fault = ("gated, round one alone", pnp.refine_pose_kernel(
+                K_, rv, tv, xyz, uv, gate.to(torch.float32), iters))
+        else:
+            fault = ("refine, one iteration fewer",
+                     pnp.refine_pose_kernel(*args, iters - 1))
+        for name, out in ((f"{'gated' if gated else 'refine'} kernel",
+                           kernel(*args)), fault):
+            ok = pose_within(torch, args, out, ref, ref64, gated)
+            shares[name] = float((~ok).float().mean())
+    log("[pose] far starts, share of poses failing the pose check: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
+    run_checks("pose far starts", {
+        "the kernel passes for every pose": shares["refine kernel"] == 0
+        and shares["gated kernel"] == 0,
+        "one iteration fewer fails for some pose":
+            shares["refine, one iteration fewer"] > 0,
+        "round one alone fails for some pose":
+            shares["gated, round one alone"] > 0})
+    return shares
+
+
+def run_pose(torch, dev, shapes=POSE_SHAPES, reps=20):
+    """The "pose" phase: ``csrc/pose.cu`` at the main path's calls
+    (POSE_SHAPES) against its plain version on the card: one launch a
+    call, two launches equal bit for bit, every pose by the pose check
+    (``pose_within``) and, gated, the same inliers and count; then its
+    device time (torch.profiler and CUDA events), the host's time to
+    return from the call, the plain version's synchronised host time, and
+    the bound; then ``pose_faults``.  Returns the rows by label, and the
+    far starts' shares under "far starts"."""
+    from sfm_tpu_torch import native
+    rows = {}
+    for label, (P, N, gated, iters, live) in shapes.items():
+        args = pose_inputs(torch, dev, P, N, gated, live=live, seed=P + N)
+        kernel, plain = pose_fns(gated, iters)
+        n0 = native.LAUNCHES["pose_refine"]
+        out = kernel(*args)
+        torch.cuda.synchronize()
+        launched = native.LAUNCHES["pose_refine"] - n0
+        again = kernel(*args)
+        ref = plain(*args)
+        ref64 = plain(*_to_f64(torch, *args))
+        torch.cuda.synchronize()
+        w = ref64[2] if gated else args[5]
+        c_k, c_p, c_64 = (pose_cost(torch, args, o[0], o[1], w)
+                          for o in (out, ref, ref64))
+        rel = float(((c_k - c_64).abs() / c_64.clamp(min=1e-30)).max())
+        apart = max(float((a - b).abs().max()) for a, b in zip(out, ref[:2]))
+        checks = {
+            "one launch a call": launched == 1,
+            "two launches equal bit for bit": all(
+                same_bits(torch, a, b) for a, b in zip(out, again)),
+            "every pose by the pose check": bool(pose_within(
+                torch, args, out, ref, ref64, gated).all()),
+        }
+        if gated:
+            checks["the plain version's inliers and count"] = bool(
+                torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3]))
+        run_checks(f"pose {label}", checks)
+        ms = device_ms(torch, lambda: kernel(*args), reps)
+        ev = cuda_ms(torch, lambda: kernel(*args), reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kernel(*args)
+        host_ms = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+        b = pose_bound(args, gated, iters)
+        log(f"[pose] {label}: device {us(ms)} (events {us(ev)}), bound "
+            f"{us(b['bound_ms'])} by {b['bound_by']}{share(b['bound_ms'], ms)}"
+            f"; the host returns in {us(host_ms)}; the plain version "
+            f"{us(plain_ms)} synchronised; poses {apart:.2e} apart, final "
+            f"cost {rel:.2e} of the float64 plain version's"
+            + (f", inliers {int(ref[3].sum())}" if gated else ""))
+        rows[label] = dict(shape=label, ms=ms, event_ms=ev, host_ms=host_ms,
+                           plain_ms=plain_ms, apart=apart, cost_rel=rel,
+                           **b)
+    rows["far starts"] = pose_faults(torch, dev)
+    return rows
+
+
 # name -> builder(torch, dev) of the driver's calls: the main path's
 # shapes first, then the edges
 SANITIZE_CASES = {
@@ -4886,6 +5252,8 @@ SANITIZE_CASES = {
     "BA longscan mapping": ba_main_case(512, 16384, 8),
     "cull flagship": cull_case(32, 512, 8192),
     "cull longscan": cull_case(512, 512, 65536),
+    "pose refine 512": pose_case(1, 512, False, 1),
+    "pose gated 512": pose_case(1, 512, True, 1),
     "K1 37x53": k1_edge_case(1, 37, 53, 40.0),
     "K1 1x1": k1_edge_case(1, 1, 1, 1e9),
     "K1 B=3 expanded": k1_edge_case(3, 37, 53, 40.0, expand=True),
@@ -4911,6 +5279,9 @@ SANITIZE_CASES = {
                               tie=(1, 2)),
     "cull K=1": cull_case(1, 512, 8192, keep_first=0, live=1.0),
     "cull every slot invalid": cull_case(32, 512, 8192, live=0.0),
+    "pose gated 3x301": pose_case(3, 301, True, 1, seed=2),
+    "pose 5 poses, one point set": pose_case(5, 700, False, 1, shared=True),
+    "pose depth ~0 and behind": pose_case(2, 512, True, 1, degenerate=8),
 }
 
 
@@ -5154,6 +5525,10 @@ def main(argv):
     log(f"kernel build: {native.BUILD_INFO['seconds']:.2f} s "
         f"({native.BUILD_INFO['path']})")
     log(native.BUILD_INFO.get("ptxas", ""))
+    if "--pose" in argv:
+        print(json.dumps({"pose": run_pose(torch, dev)}))
+        print(card[0])
+        return 0
     if "--ring" in argv:
         failed = ring_runs(torch, int(argv[argv.index("--ring") + 1]))
         print(card[0])
@@ -5178,46 +5553,72 @@ def main(argv):
         print(card[0])
         return 0
     sanitize = run_sanitize(torch, dev)
+    # the pose kernel's launches by call site and shape, phase by phase
+    pose_sites, restore_pose = count_pose_sites(native)
+    pose_by_phase = {}
+
+    def pose_phase(name):
+        seen = {}
+        for c in pose_by_phase.values():
+            for k, v in c.items():
+                seen[k] = seen.get(k, 0) + v
+        pose_by_phase[name] = {k: v - seen.get(k, 0)
+                               for k, v in pose_sites.items()
+                               if v != seen.get(k, 0)}
     k1_calls = []
     flagship = run_slice(torch, dev, SfMConfig(**FLAGSHIP), "flagship",
                          MAIN_PATH, k1_calls=k1_calls, keep=True)
+    pose_phase("flagship")
     dense = run_slice(torch, dev, SfMConfig(**SLICE), "dense",
                       ("hamming_match", "patch_sampler"))
     # the dense solver sums in a fixed order: a rerun repeats bit for bit
     dense_again = run_slice(torch, dev, SfMConfig(**SLICE), "dense rerun",
                             ("hamming_match", "patch_sampler"))
+    pose_phase("dense")
     run_checks("dense", {
         "a rerun gives the same statuses, keyframes and landmarks bit for "
         "bit": dense_again["digest"] == dense["digest"]
         and dense_again["statuses"] == dense["statuses"]})
     bench, bench_once = run_bench_ba(torch, dev)
     live = run_live(torch, dev, SfMConfig(**FLAGSHIP), MAIN_PATH)
+    pose_phase("live")
     flow_cfg = SfMConfig(**FLAGSHIP, track_with_flow=True)
     flow = run_slice(torch, dev, flow_cfg, "flow", MAIN_PATH, n_frames=30)
     flow["lk_flow_ms"] = time_flow(torch, dev, flow_cfg)
+    pose_phase("flow")
     cli = run_cli(torch, dev)
+    pose_phase("cli")
     pipeline = run_pipeline(torch, dev, SfMConfig(**FLAGSHIP), MAIN_PATH)
+    pose_phase("pipeline")
     serve = run_serve(torch, dev, FLAGSHIP, MAIN_PATH)
+    pose_phase("serve")
     cg = run_slice(torch, dev, SfMConfig(**dict(FLAGSHIP, ba_solver="cg")),
                    "cg", ("hamming_match", "patch_sampler"), n_frames=40)
+    pose_phase("cg")
     log(f"[cg] mapping pass {cg['map_ms']:.3f} ms (large "
         f"{flagship['map_ms']:.3f} ms, dense {dense['map_ms']:.3f} ms)")
     long_cfg = SfMConfig(**LONGSCAN)
     long_k1_calls = []
     longscan = run_longscan(torch, dev, long_cfg, MAIN_PATH,
                             k1_calls=long_k1_calls)
+    pose_phase("longscan")
     ring_k1_calls = []
     ring = run_ring(torch, dev, SfMConfig(**RING), MAIN_PATH,
                     k1_calls=ring_k1_calls)
+    pose_phase("ring")
     fleet_k1_calls = []
     fleet = run_fleet(torch, dev, SfMConfig(**FLAGSHIP),
                       k1_calls=fleet_k1_calls, single_fps=flagship["fps"])
+    pose_phase("fleet")
     dist = run_dist(torch, dev)
     raytrace, anchor = raytrace_and_anchor(torch, dev, bench_once)
+    pose_phase("raytrace")
     # the kernels against their plain versions, with the timings under
     # torch.profiler last: a profiler session leaves the host slower for
     # the host-bound phases after it
     rows = check_kernels(torch, dev)
+    pose_rows = run_pose(torch, dev)
+    pose_far = pose_rows.pop("far starts")
     k1_sites = k1_by_site(torch, k1_calls)
     if sum(r["calls"] for r in k1_sites.values()) \
             != flagship["launches"]["hamming_match"]:
@@ -5260,6 +5661,8 @@ def main(argv):
     # a profiler session, so it comes after every timed one
     with tempfile.TemporaryDirectory() as trace_dir:
         helpers = run_helpers(torch, dev, flagship.pop("keep"), trace_dir)
+    pose_phase("helpers")
+    restore_pose()
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         r = rows[name]
@@ -5386,6 +5789,22 @@ def main(argv):
         library_ms=r["library_ms"], shape=r["shape"],
         event_ms=r["event_ms"], plain_event_ms=r["plain_event_ms"],
         ops_per_call=r["ops_per_call"]))
+    # the pose refinement at the main path's calls; each row's launches
+    # are those of its phase (POSE_RUNS) at its call sites and shape, and
+    # by phase (the dist phase's ranks are processes of their own)
+    for label, r in pose_rows.items():
+        launches, by_phase = pose_launches(label, pose_by_phase)
+        log(f"[pose] {label}: {launches} launches in its phase "
+            f"({POSE_RUNS[label][0]}), by phase {by_phase}")
+        kernels.append(dict(
+            name="pose_refine", route="cuda",
+            source="sfm_tpu_torch/csrc/pose.cu",
+            replaces="none: the eager op chain of "
+                     "sfm_tpu_torch/geometry/pnp.py::refine_pose",
+            launches=launches, launches_by_phase=by_phase,
+            max_abs_err=r["apart"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            shape=label, event_ms=r["event_ms"], host_ms=r["host_ms"]))
     longscan.update(device=long_dev, k1_by_site=long_k1)
     ring.update(k1_by_site=ring_k1)
     fleet.update(k1_by_site=fleet_k1)
@@ -5406,6 +5825,10 @@ def main(argv):
         "dense_rerun_digest_equal": dense_again["digest"] == dense["digest"],
         "longscan": longscan, "ring": ring, "fleet": fleet, "dist": dist,
         "raytrace": raytrace, "anchor": anchor, "sanitize": sanitize,
+        "pose_far_starts": pose_far,
+        "pose_launches_by_phase": {
+            ph: {"|".join(map(str, k)): v for k, v in c.items()}
+            for ph, c in pose_by_phase.items()},
         "per_shape": {k: r["per_shape"] for k, r in rows.items()
                       if "per_shape" in r}}))
     print(json.dumps({"kernels": kernels}))

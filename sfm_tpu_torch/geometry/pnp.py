@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from .. import native
 from ..utils.profiling import count
 from .camera import project
 from .poly import quartic_roots
@@ -159,7 +160,21 @@ def refine_pose(K, rvec, tvec, xyz, uv, w, iters: int = 10,
     a step is kept only when it lowers the cost.  Fixed trip count, no
     host synchronisation.  rvec, tvec [..., 3] against xyz [..., N, 3], uv
     [..., N, 2], w [..., N] (a fleet: one pose per scan).  Returns (rvec,
-    tvec)."""
+    tvec).
+
+    Dispatch: CPU tensors run ``refine_pose_plain``; CUDA tensors launch
+    ``csrc/pose.cu`` (``refine_pose_kernel``), float32 only."""
+    count("pose_refine")
+    if xyz.device.type == "cpu":
+        return refine_pose_plain(K, rvec, tvec, xyz, uv, w, iters, damping)
+    if xyz.is_cuda:
+        return refine_pose_kernel(K, rvec, tvec, xyz, uv, w, iters, damping)
+    raise ValueError(f"refine_pose: unsupported device {xyz.device}")
+
+
+def refine_pose_plain(K, rvec, tvec, xyz, uv, w, iters: int = 10,
+                      damping: float = 1e-4):
+    """``refine_pose`` in torch ops, on any device."""
     def cost_of(rv, tv):
         res = (project(K, rv, tv, xyz) - uv) * w[..., None]
         return torch.sum(res ** 2, dim=(-2, -1))
@@ -182,6 +197,84 @@ def refine_pose(K, rvec, tvec, xyz, uv, w, iters: int = 10,
         tv = torch.where(ok, tv_new, tv)
         cost = torch.where(ok[..., 0], new_cost, cost)
     return rv, tv
+
+
+def refine_pose_kernel(K, rvec, tvec, xyz, uv, w, iters: int = 10,
+                       damping: float = 1e-4):
+    """``refine_pose_plain`` as one launch of ``csrc/pose.cu``: one block
+    per pose, no read on the host.  Float32 CUDA tensors on one device;
+    raises otherwise."""
+    return _pose_launch(K, rvec, tvec, xyz, uv, w, iters, damping)
+
+
+def _pose_launch(K, rvec, tvec, xyz, uv, weights, iters, damping=1e-4,
+                 threshold=None):
+    """One launch of ``csrc/pose.cu`` over the broadcast leading
+    dimensions of the inputs.  ``threshold`` None: ``weights`` are float32
+    weights, and the launch returns (rvec, tvec).  Else ``weights`` is the
+    bool mask of ``ransac.refined``'s gated rounds, and the launch returns
+    (rvec, tvec, inliers [..., N], n [...] int64)."""
+    gated = threshold is not None
+    wname = "valid" if gated else "w"
+    named = {"K": K, "rvec": rvec, "tvec": tvec, "xyz": xyz, "uv": uv,
+             wname: weights}
+    dev = xyz.device
+    for name, t in named.items():
+        if not t.is_cuda:
+            raise ValueError(f"refine_pose: {name} is on {t.device}, "
+                             f"expected a CUDA tensor")
+        if t.device != dev:
+            raise ValueError("refine_pose: inputs on different devices")
+        want = torch.bool if name == "valid" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"refine_pose: {name} is {t.dtype}, the kernel "
+                            f"takes {want}")
+    if K.shape != (3, 3):
+        raise ValueError(f"refine_pose: K of shape {tuple(K.shape)}")
+    N = xyz.shape[-2]
+    lead = torch.broadcast_shapes(rvec.shape[:-1], tvec.shape[:-1],
+                                  xyz.shape[:-2], uv.shape[:-2],
+                                  weights.shape[:-1])
+    P = math.prod(lead)
+    rv_out = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    tv_out = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    out = (rv_out, tv_out)
+    if gated:
+        out += (torch.empty((*lead, N), dtype=torch.bool, device=dev),
+                torch.empty(lead, dtype=torch.int64, device=dev))
+    if P == 0:
+        return out
+    rows = [_pose_rows(t, lead, tail) for t, tail in (
+        (rvec, (3,)), (tvec, (3,)), (xyz, (N, 3)), (uv, (N, 2)),
+        (weights, (N,)))]
+    ptrs = [(t.data_ptr(), stride) for t, stride in rows]
+    absent = (None, 0)
+    if gated:
+        w_arg, valid_arg = absent, ptrs[4]
+        extra = (out[2].data_ptr(), out[3].data_ptr())
+    else:
+        w_arg, valid_arg, extra = ptrs[4], absent, (None, None)
+    K = K.contiguous()
+    lib = native.library()
+    stream = native.stream_handle(dev)
+    rc = lib.sfm_pose_refine(
+        K.data_ptr(), *ptrs[0], *ptrs[1], *ptrs[2], *ptrs[3], *w_arg,
+        *valid_arg, P, N, max(int(iters), 0), damping,
+        threshold if gated else 0.0, rv_out.data_ptr(), tv_out.data_ptr(),
+        *extra, stream)
+    native.check(rc, "refine_pose")
+    native.count_launch("pose_refine", stream)
+    count("pose_kernel")
+    return out
+
+
+def _pose_rows(t, lead, tail):
+    """(``t`` [..., *tail] as contiguous rows, the stride in elements from
+    one pose's row to the next): 0 where one row serves every pose of
+    ``lead``."""
+    if math.prod(t.shape[:t.dim() - len(tail)]) == 1:
+        return t.reshape(tail).contiguous(), 0
+    return t.expand(*lead, *tail).contiguous(), math.prod(tail)
 
 
 def reprojection_errors(K, rvec, tvec, xyz, uv):

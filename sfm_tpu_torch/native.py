@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"hamming_match": 0, "patch_sampler": 0, "ba_linearize": 0,
             "schur_apply": 0, "schur_gather": 0, "schur_scatter": 0,
-            "cull_keyframes": 0}
+            "cull_keyframes": 0, "pose_refine": 0}
 # (kernel, stream handle) -> launches
 STREAM_LAUNCHES = {}
 BUILD_INFO = {}
@@ -63,6 +63,8 @@ _SIGNATURES = {
     "sfm_schur_apply": ("schur", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _P, _P, _P, _P]),
     "sfm_cull_keyframes": ("cull", [_P] * 5 + [_I] * 5 + [_F] + [_P] * 4),
+    "sfm_pose_refine": ("pose", [_P] + [_P, _L] * 6 + [_I] * 3 + [_F] * 2
+                        + [_P] * 5),
 }
 
 

@@ -16,7 +16,8 @@ import torch
 from .geometry.epipolar import (epiline_distance_sq,
                                 homography_transfer_error_sq)
 from .geometry.estimation import estimate_fundamental, estimate_homography
-from .geometry.pnp import p3p, pnp_dlt, refine_pose, reprojection_errors
+from .geometry.pnp import (_pose_launch, p3p, pnp_dlt, refine_pose_plain,
+                           reprojection_errors)
 from .utils.profiling import count
 
 
@@ -117,6 +118,48 @@ def _pick(x, idx):
     return torch.take_along_dim(x, idx[..., None, None], dim=-2)[..., 0, :]
 
 
+def refined(K, rvec, tvec, xyz, uv, valid, *, threshold: float,
+            iters: int):
+    """RANSAC's last step: twice, the inliers at the pose ((reprojection
+    error < threshold) & valid) and ``refine_pose`` on them; then the
+    inliers at the final pose.  Returns (rvec, tvec, inliers [..., N], n
+    [...]).
+
+    Dispatch: CPU tensors run ``refined_plain``; CUDA tensors launch
+    ``csrc/pose.cu`` once (``refined_kernel``), float32 with a bool
+    ``valid`` only."""
+    count("pose_refine")
+    if xyz.device.type == "cpu":
+        return refined_plain(K, rvec, tvec, xyz, uv, valid,
+                             threshold=threshold, iters=iters)
+    if xyz.is_cuda:
+        return refined_kernel(K, rvec, tvec, xyz, uv, valid,
+                              threshold=threshold, iters=iters)
+    raise ValueError(f"refined: unsupported device {xyz.device}")
+
+
+def refined_plain(K, rvec, tvec, xyz, uv, valid, *, threshold: float,
+                  iters: int):
+    """``refined`` in torch ops, on any device."""
+    rv, tv = rvec, tvec
+    for _ in range(2):  # csrc/pose.cu's kRounds
+        inl = (reprojection_errors(K, rv, tv, xyz, uv) < threshold) & valid
+        rv, tv = refine_pose_plain(K, rv, tv, xyz, uv, inl.to(torch.float32),
+                                   iters=iters)
+    inl = (reprojection_errors(K, rv, tv, xyz, uv) < threshold) & valid
+    return rv, tv, inl, inl.sum(-1)
+
+
+def refined_kernel(K, rvec, tvec, xyz, uv, valid, *, threshold: float,
+                   iters: int):
+    """``refined_plain`` as one launch of ``csrc/pose.cu``: its rounds,
+    then the inliers at the final pose and their count, with no read on
+    the host.  Float32 CUDA tensors and a bool ``valid`` on one device;
+    raises otherwise."""
+    return _pose_launch(K, rvec, tvec, xyz, uv, valid, iters,
+                        threshold=threshold)
+
+
 def ransac_pnp(generator, K, xyz, uv, valid, *, n_hypotheses: int = 64,
                sample_size: int = 6, threshold: float = 7.0,
                refine_iters: int = 10, min_inliers: int = 5,
@@ -139,14 +182,6 @@ def ransac_pnp(generator, K, xyz, uv, valid, *, n_hypotheses: int = 64,
     if solver not in ("dlt", "p3p"):
         raise ValueError(f"unknown PnP solver {solver!r} (dlt or p3p)")
     lead = valid.shape[:-1]
-
-    def refined(rv, tv):
-        for _ in range(2):
-            inl = (reprojection_errors(K, rv, tv, xyz, uv) < threshold) & valid
-            rv, tv = refine_pose(K, rv, tv, xyz, uv, inl.to(torch.float32),
-                                 iters=refine_iters)
-        inl = (reprojection_errors(K, rv, tv, xyz, uv) < threshold) & valid
-        return rv, tv, inl, inl.sum(-1)
 
     if samples is None:
         if lead:
@@ -177,9 +212,12 @@ def ransac_pnp(generator, K, xyz, uv, valid, *, n_hypotheses: int = 64,
         tvs = torch.cat([tvs, prior_tvec[..., None, :]], -2)
         counts = torch.cat([counts, n_p[..., None]], -1)
     best = torch.argmax(counts, -1)
-    rv, tv, inl, n = refined(_pick(rvs, best), _pick(tvs, best))
+    gate = dict(threshold=threshold, iters=refine_iters)
+    rv, tv, inl, n = refined(K, _pick(rvs, best), _pick(tvs, best), xyz, uv,
+                             valid, **gate)
     if prior_rvec is not None and fast_path_ratio > 0.0:
-        rv_f, tv_f, inl_f, n_f = refined(prior_rvec, prior_tvec)
+        rv_f, tv_f, inl_f, n_f = refined(K, prior_rvec, prior_tvec, xyz, uv,
+                                         valid, **gate)
         good = (n_f >= fast_path_ratio * valid.sum(-1)) & (n_f >= min_inliers)
         rv = torch.where(good[..., None], rv_f, rv)
         tv = torch.where(good[..., None], tv_f, tv)

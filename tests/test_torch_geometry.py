@@ -264,6 +264,46 @@ def test_pnp(scene):
     assert torch.isfinite(rvb).all()
 
 
+def test_refine_pose_on_the_cpu_is_the_plain_version(scene):
+    """On the CPU ``refine_pose`` is ``refine_pose_plain`` bit for bit,
+    batched too; the kernel's wrapper refuses host tensors before it
+    builds or launches anything."""
+    rng = np.random.default_rng(4)
+    K, X = to_t(TEST_K), to_t(scene["X"])
+    uv = to_t((scene["uv1"] + rng.normal(0, 0.5, scene["uv1"].shape))
+              .astype(np.float32))
+    w = to_t((rng.uniform(0, 1, len(X)) < 0.9).astype(np.float32))
+    rv = to_t(np.stack([scene["rvec1"] + 0.01, scene["rvec1"] - 0.01])
+              .astype(np.float32))
+    tv = to_t(np.stack([scene["t1"]] * 2).astype(np.float32))
+    for a, b in ((rv[0], tv[0]), (rv, tv)):
+        got = pnp.refine_pose(K, a, b, X, uv, w, iters=3)
+        want = pnp.refine_pose_plain(K, a, b, X, uv, w, iters=3)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    with pytest.raises(ValueError, match="CUDA"):
+        pnp.refine_pose_kernel(K, rv, tv, X, uv, w, iters=3)
+
+
+@pytest.mark.parametrize("shape, lead, tail, stride", [
+    ((5, 3), (5,), (3,), 3),             # one pose a row
+    ((3,), (4,), (3,), 0),               # one pose for every row
+    ((1, 40, 3), (4,), (40, 3), 0),      # one point set for every pose
+    ((4, 40, 3), (4,), (40, 3), 120),
+    ((4, 1, 40), (4, 5), (40,), 40),     # a mask broadcast over an axis
+])
+def test_pose_kernel_row_layout(shape, lead, tail, stride):
+    """The kernel's wrapper lays each input out as one contiguous row per
+    pose of the broadcast leading shape, or one row for all (stride 0)."""
+    t = torch.arange(float(np.prod(shape))).reshape(shape)
+    rows, got = pnp._pose_rows(t, lead, tail)
+    assert got == stride and rows.is_contiguous()
+    full = t.expand(*lead, *tail).reshape(-1, *tail)
+    for p in range(full.shape[0]):
+        start = p * stride
+        assert torch.equal(rows.reshape(-1)[start:start + int(
+            np.prod(tail))].reshape(tail), full[p])
+
+
 def test_quat_to_matrix_and_rotate_points():
     """rtol 1e-5 against the JAX package (atol 1e-6 for entries near 0)."""
     rng = np.random.default_rng(5)

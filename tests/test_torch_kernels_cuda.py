@@ -1280,3 +1280,139 @@ def test_cull_keyframes_makes_no_synchronisation(cuda):
     assert int(culled_ref.sum()) > 0
     assert torch.equal(culled.cpu(), culled_ref)
     assert torch.equal(out.valid.cpu(), ref.valid)
+
+
+# csrc/pose.cu against the plain refinement (pnp.refine_pose_plain,
+# ransac.refined_plain) on the card, on chip_smoke's pose problems.  The
+# tolerances: the pose after one iteration within 1e-5 of the plain
+# version's, since H and g are summed in another order and the kernel
+# contracts multiply-adds, which moves a float32 step of ~1e-3 by ~1e-7
+# of the pose; after more iterations the refinement amplifies such
+# differences (a start 7e-7 apart ended 4e-4 apart in a 120x160 scan), so
+# the final cost, in float64, within 1e-4 relative; the inlier masks and
+# counts equal, since the problems are well separated (inliers within 1.5
+# px of their projection, outliers 20 px off, the threshold 7 px).
+def _pose_run(cuda, P, N, gated, iters, **kw):
+    args = SMOKE.pose_inputs(torch, cuda, P, N, gated, **kw)
+    kernel, plain = SMOKE.pose_fns(gated, iters)
+    n0 = native.LAUNCHES["pose_refine"]
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["pose_refine"] == n0 + 1
+    ref = plain(*args)
+    w = ref[2] if gated else args[5]
+    c_k, c_p = (SMOKE.pose_cost(torch, args, o[0], o[1], w)
+                for o in (out, ref))
+    assert torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()
+    assert ((c_k - c_p).abs() <= 1e-4 * c_p).all(), (c_k, c_p)
+    if gated:
+        assert torch.equal(out[2], ref[2])
+        assert torch.equal(out[3], ref[3])
+        assert int(ref[3].min()) > 0
+    if iters == 1:
+        for a, b in zip(out[:2], ref[:2]):
+            assert (a - b).abs().max() <= 1e-5
+    return args, out, ref
+
+
+@pytest.mark.parametrize("iters", [1, 4])
+def test_pose_refine_kernel_equals_plain(cuda, iters):
+    """refine_pose at the tracking call's 512 matches."""
+    _pose_run(cuda, 1, 512, False, iters, seed=iters)
+
+
+def test_pose_gated_kernel_equals_plain(cuda):
+    """ransac_pnp's refined() at 512 matches, 2 rounds of 6 iterations,
+    threshold 7 px: the pose, the inliers and their count."""
+    _pose_run(cuda, 1, 512, True, 6, seed=5)
+
+
+@pytest.mark.parametrize("gated, iters", [(True, 6), (False, 4)])
+def test_pose_kernel_fleet_batch(cuda, gated, iters):
+    """A fleet's 64 scans x 512 matches: 64 blocks, each its own pose and
+    points."""
+    _pose_run(cuda, 64, 512, gated, iters, seed=6)
+
+
+def test_pose_kernel_at_relocalisation_size(cuda):
+    """N = 65536 landmark slots with 2% valid, as relocalisation and the
+    loop probe pass them."""
+    _pose_run(cuda, 1, 65536, True, 6, live=0.02, seed=7)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_pose_kernel_without_weights_returns_the_start(cuda, gated):
+    """All weights zero (or no point valid): no step lowers a zero cost,
+    so the start comes back bit for bit, with no inliers."""
+    args = list(SMOKE.pose_inputs(torch, cuda, 3, 512, gated, seed=8))
+    args[5] = torch.zeros_like(args[5])
+    kernel, _ = SMOKE.pose_fns(gated, 4)
+    out = kernel(*args)
+    assert torch.equal(out[0], args[1]) and torch.equal(out[1], args[2])
+    if gated:
+        assert not out[2].any() and int(out[3].sum()) == 0
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_pose_kernel_at_depth_zero_and_behind_the_camera(cuda, gated):
+    """Points at camera depth ~0 (the 1e-9 and 1e-6 guards) and behind
+    the camera (weight 1): finite, and as the plain version."""
+    _pose_run(cuda, 2, 512, gated, 1, degenerate=8, seed=9)
+
+
+@pytest.mark.parametrize("iters", [1, 4])
+def test_pose_kernel_near_pi(cuda, iters):
+    """A rotation 0.02 rad short of pi: log_so3's near-pi branch."""
+    _pose_run(cuda, 1, 512, False, iters, angle=np.pi - 0.02, seed=10)
+
+
+@pytest.mark.parametrize("P, gated", [(1, True), (64, False)])
+def test_pose_kernel_repeats_bit_for_bit(cuda, P, gated):
+    """Fixed-order sums, no atomics: two launches give equal bits."""
+    args = SMOKE.pose_inputs(torch, cuda, P, 512, gated, seed=11)
+    kernel, _ = SMOKE.pose_fns(gated, 6)
+    for a, b in zip(kernel(*args), kernel(*args)):
+        assert SMOKE.same_bits(torch, a, b)
+
+
+def test_pose_wrapper_refuses_other_inputs(cuda):
+    """A float64 pose, a float mask or K on the host raise before any
+    launch."""
+    from sfm_tpu_torch import ransac
+    from sfm_tpu_torch.geometry import pnp
+    K, rv, tv, xyz, uv, valid = SMOKE.pose_inputs(torch, cuda, 1, 64, True)
+    w = valid.float()
+    n0 = native.LAUNCHES["pose_refine"]
+    with pytest.raises(TypeError):
+        pnp.refine_pose(K, rv.double(), tv, xyz, uv, w, iters=2)
+    with pytest.raises(TypeError):
+        pnp.refine_pose(K, rv, tv, xyz.double(), uv, w, iters=2)
+    with pytest.raises(TypeError):
+        ransac.refined_kernel(K, rv, tv, xyz, uv, w, threshold=7.0, iters=2)
+    with pytest.raises(ValueError, match="different devices|expected a CUDA"):
+        pnp.refine_pose(K.cpu(), rv, tv, xyz, uv, w, iters=2)
+    with pytest.raises(ValueError, match="different devices|expected a CUDA"):
+        ransac.refined(K, rv, tv, xyz, uv, valid.cpu(), threshold=7.0,
+                       iters=2)
+    assert native.LAUNCHES["pose_refine"] == n0
+
+
+def test_pose_entries_count_and_make_no_synchronisation(cuda):
+    """On the card each entry launches once and counts one ``pose_refine``
+    and one ``pose_kernel``, under the sync debug mode "error"."""
+    from sfm_tpu_torch import ransac
+    from sfm_tpu_torch.geometry import pnp
+    K, rv, tv, xyz, uv, valid = SMOKE.pose_inputs(torch, cuda, 1, 512, True)
+    pnp.refine_pose(K, rv, tv, xyz, uv, valid.float(), iters=4)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with RECORDER.enabled() as trace:
+            pnp.refine_pose(K, rv, tv, xyz, uv, valid.float(), iters=4)
+            ransac.refined(K, rv, tv, xyz, uv, valid, threshold=7.0, iters=6)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert trace.counter("pose_refine") == 2
+    assert trace.counter("pose_kernel") == 2
+    assert trace.counter("implicit_sync") == 0

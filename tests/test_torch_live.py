@@ -63,6 +63,39 @@ def test_live_phase(smoke, counted_k1):
     assert out["reloc_inliers"] >= cfg.reloc_min_inliers
 
 
+def test_live_phase_counts_pose_sites(smoke, counted_k1, monkeypatch):
+    """The live phase's pose refinements by call site and shape
+    (``count_pose_sites``, as the full run counts them for the pose
+    kernel's rows): the tracking PnP and refinement at the keypoints,
+    relocalisation at every landmark slot.  On the CPU a wrapper counts
+    the calls where the kernel counts launches."""
+    from sfm_tpu_torch import ransac
+    from sfm_tpu_torch.engine import tracking
+
+    def counted(real):
+        def call(*a, **kw):
+            native.LAUNCHES["pose_refine"] += 1
+            return real(*a, **kw)
+        return call
+    monkeypatch.setattr(ransac, "refined", counted(ransac.refined))
+    monkeypatch.setattr(tracking, "refine_pose",
+                        counted(tracking.refine_pose))
+    cfg = SfMConfig(**TEST_CFG_KW)
+    sites, restore = smoke.count_pose_sites(native)
+    try:
+        smoke.run_live(torch, "cpu", cfg, ("hamming_match",), K=TEST_K,
+                       before=12, after=8)
+    finally:
+        restore()
+        native.reset_launch_counts()
+    N, L = cfg.max_keypoints, cfg.max_landmarks
+    assert set(sites) == {("tracking._pnp", 1, N),
+                          ("tracking._refine", 1, N),
+                          ("reloc.reloc_step", 1, L)}
+    assert sites[("tracking._refine", 1, N)] <= sites[("tracking._pnp", 1, N)]
+    assert sites[("reloc.reloc_step", 1, L)] > 0
+
+
 def test_flow_timing(smoke):
     cfg = SfMConfig(**TEST_CFG_KW, track_with_flow=True)
     assert smoke.time_flow(torch, "cpu", cfg, K=TEST_K) > 0

@@ -127,6 +127,70 @@ def test_p3p_is_not_ported_yet(contaminated):
                           to_t(s["valid"]), solver="epnp")
 
 
+def _former_refined(K, rv, tv, xyz, uv, valid, threshold, iters):
+    """ransac_pnp's refinement as it was written inline before it became
+    the module-level ``refined``."""
+    from sfm_tpu_torch.geometry.pnp import refine_pose, reprojection_errors
+    for _ in range(2):
+        inl = (reprojection_errors(K, rv, tv, xyz, uv) < threshold) & valid
+        rv, tv = refine_pose(K, rv, tv, xyz, uv, inl.to(torch.float32),
+                             iters=iters)
+    inl = (reprojection_errors(K, rv, tv, xyz, uv) < threshold) & valid
+    return rv, tv, inl, inl.sum(-1)
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_refined_equals_the_former_inline_loop(contaminated, batch):
+    """The module-level ``refined`` on the CPU (``refined_plain``) gives
+    the former inline loop's pose, inliers and count bit for bit, for one
+    pose and for a fleet's batch of poses; the kernel's wrapper refuses
+    host tensors before it builds or launches anything."""
+    s = contaminated
+    K, X, uv, valid = (to_t(TEST_K), to_t(s["X"]), to_t(s["uv1n"]),
+                       to_t(s["valid"]))
+    rv = to_t((s["rvec1"] + 0.004).astype(np.float32))
+    tv = to_t((s["t1"] - 0.01).astype(np.float32))
+    if batch:
+        g = torch.Generator().manual_seed(batch)
+        X, uv, valid = (x.expand(batch, *x.shape).clone() for x in
+                        (X, uv, valid))
+        uv = uv + 0.2 * torch.randn(uv.shape, generator=g)
+        rv = rv + 1e-3 * torch.randn((batch, 3), generator=g)
+        tv = tv.expand(batch, 3)
+    want = _former_refined(K, rv, tv, X, uv, valid, 7.0, 6)
+    got = ransac.refined(K, rv, tv, X, uv, valid, threshold=7.0, iters=6)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[3].min()) > 0
+    with pytest.raises(ValueError, match="CUDA"):
+        ransac.refined_kernel(K, rv, tv, X, uv, valid, threshold=7.0,
+                              iters=6)
+
+
+def test_pose_refinements_are_counted_on_the_cpu(contaminated):
+    """Every call of either entry (``refine_pose``, ``refined``) counts
+    one ``pose_refine``; on the CPU nothing launches the kernel, so
+    ``pose_kernel`` stays 0.  ransac_pnp refines once, and once more for
+    the fast path."""
+    from sfm_tpu_torch.geometry.pnp import refine_pose
+    from sfm_tpu_torch.utils.profiling import RECORDER
+    s = contaminated
+    args = (to_t(TEST_K), to_t(s["X"]), to_t(s["uv1n"]), to_t(s["valid"]))
+    prior = (to_t(s["rvec1"]), to_t(s["t1"]))
+    with RECORDER.enabled() as trace:
+        refine_pose(args[0], *prior, args[1], args[2],
+                    args[3].to(torch.float32), iters=2)
+        ransac.refined(args[0], *prior, *args[1:], threshold=7.0, iters=2)
+        ransac.ransac_pnp(torch.Generator().manual_seed(1), *args,
+                          n_hypotheses=8, refine_iters=2)
+        ransac.ransac_pnp(torch.Generator().manual_seed(1), *args,
+                          n_hypotheses=8, refine_iters=2,
+                          prior_rvec=prior[0], prior_tvec=prior[1],
+                          fast_path_ratio=0.5)
+    assert trace.counter("pose_refine") == 5
+    assert trace.counter("pose_kernel") == 0
+
+
 @pytest.fixture
 def planar():
     """A plane seen by two cameras (an exact homography between the views),

@@ -158,3 +158,29 @@ def test_guard_catches_a_read_past_an_input():
         return (x * 2.0 + 0.0 * nxt,)
     with pytest.raises(AssertionError):
         SMOKE.sanitize_check(torch, _sub(kernel))
+
+
+def test_pose_check_rehearsed(monkeypatch):
+    """chip_smoke's pose check (``pose_faults``) with the plain versions,
+    summing over the points in reverse order, in the kernels' place: such
+    another float32 order of sums passes it for every far-started pose,
+    while one iteration fewer, and the gated mode's first round alone,
+    fail it for some."""
+    from sfm_tpu_torch import ransac
+    from sfm_tpu_torch.geometry import pnp
+
+    def refine(K, rv, tv, xyz, uv, w, iters=10, damping=1e-4):
+        return pnp.refine_pose_plain(K, rv, tv, xyz.flip(-2), uv.flip(-2),
+                                     w.flip(-1), iters, damping)
+
+    def refined(K, rv, tv, xyz, uv, valid, *, threshold, iters):
+        rv, tv, inl, n = ransac.refined_plain(
+            K, rv, tv, xyz.flip(-2), uv.flip(-2), valid.flip(-1),
+            threshold=threshold, iters=iters)
+        return rv, tv, inl.flip(-1), n
+    monkeypatch.setattr(pnp, "refine_pose_kernel", refine)
+    monkeypatch.setattr(ransac, "refined_kernel", refined)
+    shares = SMOKE.pose_faults(torch, "cpu")
+    assert shares["refine kernel"] == shares["gated kernel"] == 0
+    assert shares["refine, one iteration fewer"] > 0
+    assert shares["gated, round one alone"] > 0
